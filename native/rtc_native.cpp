@@ -1,7 +1,7 @@
 // Native runtime components for rtc_tpu.
 //
 // The reference implements its entire runtime in native code (Rust); here the
-// TPU compute path is XLA/Pallas and the HOST runtime pieces that sit on the
+// device compute path is XLA/Pallas and the HOST runtime pieces that sit on the
 // critical path are C++: OBJ ingestion (reference: src/obj_file.rs), PPM
 // encoding (reference: src/canvas.rs:28-63), and Morton-cluster construction
 // for the mesh acceleration structure. Exposed through a minimal C ABI and

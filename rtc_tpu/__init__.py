@@ -1,11 +1,11 @@
-"""rtc_tpu — a TPU-native ray-tracing framework.
+"""rtc_tpu — a differentiable ray-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 `antoinehebert/ray-tracer-challenge-rust` (the complete "Ray Tracer
 Challenge" Whitted ray tracer): every primitive, pattern, material feature,
 the full reflection/refraction integrator, OBJ meshes, and the four shipped
 scenes — rebuilt as a differentiable wavefront renderer over SoA scene slabs,
-sharded across TPU meshes with `shard_map`.
+sharded across device meshes with `shard_map`.
 
 Layer map (SURVEY.md §1):
   ops/      numeric core + per-kind kernels        (reference L0-L2)

@@ -23,7 +23,7 @@ import jax
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="rtc_tpu",
-        description="TPU-native Ray Tracer Challenge renderer",
+        description="Ray Tracer Challenge renderer (JAX)",
     )
     parser.add_argument("filename", nargs="?", help="output .ppm path")
     parser.add_argument("width", nargs="?", type=int, default=400,
@@ -33,7 +33,8 @@ def main(argv=None) -> int:
     parser.add_argument("--depth", type=int, default=5,
                         help="recursion budget (default 5)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
-    parser.add_argument("--ray-tile", type=int, default=8192)
+    parser.add_argument("--ray-tile", type=int, default=None,
+                        help="rays per wavefront tile (default: chosen by the renderer)")
     parser.add_argument("--report", action="store_true",
                         help="print a JSON render report to stderr")
     parser.add_argument("--list", action="store_true", help="list scenes")

@@ -11,7 +11,7 @@ Host-side, numpy-native. Supports the reference's subset exactly:
 
 The output groups become ONE `mesh` builder shape each (a triangle block
 sharing transform/material) instead of thousands of Triangle leaves — the
-TPU-native SoA equivalent of the reference's group-of-triangles tree.
+SoA equivalent of the reference's group-of-triangles tree.
 """
 
 from __future__ import annotations

@@ -261,10 +261,9 @@ def pumpkin(width: int = 400):
 
 def cow_herd_smooth_world(nx: int = 10, nz: int = 9) -> World:
     """cow_herd with SMOOTH (Phong-interpolated) shading: every cow carries
-    per-vertex normals, so the instanced TLAS path must blend corner normals
-    in-kernel (scene/compile.py _build_tlas with sn; the smooth-triangle
-    capability the reference stubs at src/intersection.rs:381-386, composed
-    with instancing)."""
+    per-vertex normals, so every hit blends corner normals (the
+    smooth-triangle capability the reference stubs at
+    src/intersection.rs:381-386) over the 523k-triangle world table."""
     return cow_herd_world(nx, nz, smooth=True)
 
 
@@ -274,10 +273,9 @@ def cow_herd_smooth(width: int = 400):
 
 def cow_herd_world(nx: int = 10, nz: int = 9, smooth: bool = False) -> World:
     """Large-scene stress: an nx x nz grid of cow meshes (default 90 cows =
-    522,360 triangles) — ~10x over the MXU kernel's VMEM triangle budget, so
-    the closest-hit/any-hit sweeps stream cluster superblocks through VMEM
-    (mesh_intersect superblock path), and the scene is the prim-sharding
-    ("scenes too big to replicate") exercise of SURVEY §2."""
+    522,360 triangles), ~90x the cow's triangle table: the traversal
+    kernel's box culling carries it, and it is the prim-sharding ("scenes
+    too big to replicate") exercise of SURVEY §2."""
     parser = Parser.from_obj_file(os.path.join(ASSETS, "cow-nonormals.obj"))
     cows = []
     for i in range(nx):

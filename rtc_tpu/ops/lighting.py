@@ -43,8 +43,7 @@ def lighting3(
     p3, e3, n3,        # component tuples: three (...,) arrays each
     in_shadow,         # (...,) bool
 ):
-    # component (SoA) math throughout: (R, 3) intermediates run at 3/128
-    # VPU lane occupancy on TPU (see vec.unpack3); callers already in
+    # component (SoA) math throughout (see vec.unpack3); callers already in
     # component form (the integrator shading stage) pass tuples directly
     scx, scy, scz = unpack3(surface_color)
     lix, liy, liz = unpack3(light_intensity * jnp.ones_like(surface_color))

@@ -1,22 +1,30 @@
-"""Pallas TPU kernel: two-level ray x triangle closest hit.
+"""Ray x triangle-cluster traversal kernels, written for the GPU through
+Pallas with ``backend="triton"``.
 
-The hot op of the whole framework (SURVEY.md §3.4: the reference walks a
-group tree per ray, src/shape.rs:399-436). TPU-native design:
+The hot op of the renderer (the reference walks a group tree per ray,
+src/shape.rs:399-436). Design:
 
-  * triangles live in VMEM as (3, T) SoA slabs — the whole cow mesh is
-    ~210 KB, far under the ~16 MB VMEM budget, so no HBM streaming is needed
-    per tile;
-  * rays are processed in tiles (grid dim 0); each tile keeps its running
-    (t_best, index_best) in registers/VMEM;
-  * level 1: every ray slab-tests each Morton cluster's AABB; a cluster is
-    skipped entirely (scalar branch via @pl.when) when NO ray in the tile
-    overlaps it — primary-ray tiles are coherent, so most clusters skip;
-  * level 2: Möller-Trumbore on the cluster's L triangles against the whole
-    tile, fully vectorized on the VPU as (RT, L) ops, masked min-reduce.
+  * one program per block of ``block_rays`` rays (a power of two); each ray
+    keeps its running (t_best, idx_best) in registers;
+  * triangles stay in device memory as a (9, T) SoA table [p1 | e1 | e2],
+    ordered into spatially compact clusters of ``leaf`` rows
+    (scene/compile.py), with one AABB per cluster and one per group of
+    ``SUPER_WIDTH`` clusters (built here from the cluster boxes);
+  * the program loops over the groups, then over their clusters, slab-tests
+    every ray of the block against each box and skips the box with
+    ``lax.cond`` when no ray overlaps it or when its entry t is at or beyond
+    every overlapping ray's current best hit;
+  * a visited cluster runs Möller-Trumbore in plain f32 arithmetic on a
+    (block_rays, CHUNK) tile, ``CHUNK`` triangles at a time, and folds the
+    tile's per-ray minimum into the running best (ties go to the lowest
+    triangle row, like ``jnp.argmin`` in the brute-force sweep).
 
-The kernel is forward-only; the integrator recomputes a differentiable t for
-the winning triangle (gather + closed-form MT), so gradients are exact while
-the search itself stays out of the autodiff graph.
+The kernels return only the winner (or the occlusion flag). The integrator
+recomputes t, and any shading payload, at the winning triangle in plain jnp,
+so the search stays out of the autodiff graph and needs no derivative rule.
+
+``interpret=True`` runs the same kernels in the Pallas interpreter on the
+CPU; nothing chooses it unless the caller asks.
 """
 
 from __future__ import annotations
@@ -26,1979 +34,264 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ...utils.constants import BIG, EPSILON
 
-# v5e cores carry 128 MiB of VMEM; Mosaic's default scoped-vmem limit is
-# ~16 MiB, which capped the kernel ray tile at 512. Raising it lets large
-# tiles (2048+) amortize the per-grid-step overhead that dominates sweep
-# time on scenes with sparse schedules (see BASELINE.md roofline).
-_VMEM_LIMIT = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-
-
-def _slab_overlap(ref, i, ox, oy, oz, ix, iy, iz):
-    """Tile-wide AABB slab test against box i of an SMEM (6, N) table.
-    Returns (tmin, tmax) per ray."""
-    lo_x, lo_y, lo_z = ref[0, i], ref[1, i], ref[2, i]
-    hi_x, hi_y, hi_z = ref[3, i], ref[4, i], ref[5, i]
-    tx1 = (lo_x - ox) * ix
-    tx2 = (hi_x - ox) * ix
-    ty1 = (lo_y - oy) * iy
-    ty2 = (hi_y - oy) * iy
-    tz1 = (lo_z - oz) * iz
-    tz2 = (hi_z - oz) * iz
-    tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx1, tx2), jnp.minimum(ty1, ty2)),
-                       jnp.minimum(tz1, tz2))
-    tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx1, tx2), jnp.maximum(ty1, ty2)),
-                       jnp.maximum(tz1, tz2))
-    return tmin, tmax
-
-
-def _kernel(o_ref, d_ref, p1_ref, e1_ref, e2_ref, aabb_ref, super_ref,
-            t_ref, idx_ref, *, n_super: int, super_width: int, leaf: int,
-            eps: float):
-    """3-level traversal: superclusters -> clusters -> triangles. Empty boxes
-    (lo > hi) on padding levels never overlap, so no bounds checks needed."""
-    ox, oy, oz = o_ref[0, :], o_ref[1, :], o_ref[2, :]
-    dx, dy, dz = d_ref[0, :], d_ref[1, :], d_ref[2, :]
-
-    # precompute safe inverse directions for the slab tests
-    big = jnp.float32(BIG)
-
-    def inv_dir(c):
-        near_zero = jnp.abs(c) < 1e-30
-        return jnp.where(near_zero, jnp.where(c >= 0, big, -big), 1.0 / jnp.where(near_zero, 1.0, c))
-
-    ix, iy, iz = inv_dir(dx), inv_dir(dy), inv_dir(dz)
-
-    rt = ox.shape[0]
-    t_best0 = jnp.full((rt,), big, jnp.float32)
-    idx_best0 = jnp.full((rt,), -1, jnp.int32)
-
-    def cluster_body(c, carry):
-        t_best, idx_best = carry
-        tmin, tmax = _slab_overlap(aabb_ref, c, ox, oy, oz, ix, iy, iz)
-        overlap = (tmax >= tmin) & (tmax >= 0.0) & (tmin < t_best)
-        any_hit = jnp.any(overlap)
-
-        def test_cluster(carry):
-            t_best, idx_best = carry
-            s = pl.ds(pl.multiple_of(c * leaf, leaf), leaf)
-            p1x, p1y, p1z = p1_ref[0, s], p1_ref[1, s], p1_ref[2, s]
-            e1x, e1y, e1z = e1_ref[0, s], e1_ref[1, s], e1_ref[2, s]
-            e2x, e2y, e2z = e2_ref[0, s], e2_ref[1, s], e2_ref[2, s]
-
-            # Möller-Trumbore, (RT, L) batched (reference: src/shape.rs:437-459)
-            hx = dy[:, None] * e2z[None, :] - dz[:, None] * e2y[None, :]
-            hy = dz[:, None] * e2x[None, :] - dx[:, None] * e2z[None, :]
-            hz = dx[:, None] * e2y[None, :] - dy[:, None] * e2x[None, :]
-            det = e1x[None, :] * hx + e1y[None, :] * hy + e1z[None, :] * hz
-            det_ok = jnp.abs(det) >= eps
-            f = 1.0 / jnp.where(det_ok, det, 1.0)
-            sx = ox[:, None] - p1x[None, :]
-            sy = oy[:, None] - p1y[None, :]
-            sz = oz[:, None] - p1z[None, :]
-            u = f * (sx * hx + sy * hy + sz * hz)
-            qx = sy * e1z[None, :] - sz * e1y[None, :]
-            qy = sz * e1x[None, :] - sx * e1z[None, :]
-            qz = sx * e1y[None, :] - sy * e1x[None, :]
-            v = f * (dx[:, None] * qx + dy[:, None] * qy + dz[:, None] * qz)
-            t = f * (e2x[None, :] * qx + e2y[None, :] * qy + e2z[None, :] * qz)
-            ok = (
-                det_ok
-                & (u >= 0.0) & (u <= 1.0)
-                & (v >= 0.0) & (u + v <= 1.0)
-                & (t >= 0.0)
-            )
-            tt = jnp.where(ok, t, big)
-            tmin_c = jnp.min(tt, axis=1)
-            # argmin via masked iota-min (Mosaic-friendly)
-            lane = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 1)
-            local = jnp.min(
-                jnp.where(tt <= tmin_c[:, None], lane, jnp.int32(2**30)), axis=1)
-            better = tmin_c < t_best
-            t_best = jnp.where(better, tmin_c, t_best)
-            idx_best = jnp.where(better, (c * leaf + local).astype(jnp.int32), idx_best)
-            return t_best, idx_best
-
-        return jax.lax.cond(any_hit, test_cluster, lambda cr: cr, (t_best, idx_best))
-
-    def super_body(si, carry):
-        t_best, idx_best = carry
-        tmin, tmax = _slab_overlap(super_ref, si, ox, oy, oz, ix, iy, iz)
-        overlap = (tmax >= tmin) & (tmax >= 0.0) & (tmin < t_best)
-
-        def descend(carry):
-            return jax.lax.fori_loop(
-                si * super_width, (si + 1) * super_width, cluster_body, carry)
-
-        return jax.lax.cond(jnp.any(overlap), descend, lambda cr: cr,
-                            (t_best, idx_best))
-
-    t_best, idx_best = jax.lax.fori_loop(
-        0, n_super, super_body, (t_best0, idx_best0))
-    t_ref[0, :] = t_best
-    idx_ref[0, :] = idx_best
-
-
-def _anyhit_kernel(o_ref, d_ref, maxt_ref, p1_ref, e1_ref, e2_ref, aabb_ref,
-                   super_ref, hit_ref, *, n_super: int, super_width: int,
-                   leaf: int, eps: float):
-    """Shadow-ray occlusion: does ANY triangle intersect in [0, max_t)?
-
-    Cheaper than closest-hit: no min/argmin bookkeeping, AABB cull bounded by
-    max_t, and the cluster loop breaks as soon as every ray in the tile is
-    occluded (lax.while_loop early exit).
-    """
-    ox, oy, oz = o_ref[0, :], o_ref[1, :], o_ref[2, :]
-    dx, dy, dz = d_ref[0, :], d_ref[1, :], d_ref[2, :]
-    maxt = maxt_ref[0, :]
-    big = jnp.float32(BIG)
-
-    def inv_dir(c):
-        near_zero = jnp.abs(c) < 1e-30
-        return jnp.where(near_zero, jnp.where(c >= 0, big, -big),
-                         1.0 / jnp.where(near_zero, 1.0, c))
-
-    ix, iy, iz = inv_dir(dx), inv_dir(dy), inv_dir(dz)
-    rt = ox.shape[0]
-
-    # found is carried as i32 (Mosaic mishandles vector<i1> loop carries);
-    # once every ray is occluded the per-cluster overlap test goes all-False
-    # and remaining clusters reduce to one skipped branch each.
-    def body(c, found):
-        tmin, tmax = _slab_overlap(aabb_ref, c, ox, oy, oz, ix, iy, iz)
-        overlap = (tmax >= tmin) & (tmax >= 0.0) & (tmin < maxt) & (found == 0)
-        any_hit = jnp.any(overlap)
-
-        def test(found):
-            s = pl.ds(pl.multiple_of(c * leaf, leaf), leaf)
-            p1x, p1y, p1z = p1_ref[0, s], p1_ref[1, s], p1_ref[2, s]
-            e1x, e1y, e1z = e1_ref[0, s], e1_ref[1, s], e1_ref[2, s]
-            e2x, e2y, e2z = e2_ref[0, s], e2_ref[1, s], e2_ref[2, s]
-            hx = dy[:, None] * e2z[None, :] - dz[:, None] * e2y[None, :]
-            hy = dz[:, None] * e2x[None, :] - dx[:, None] * e2z[None, :]
-            hz = dx[:, None] * e2y[None, :] - dy[:, None] * e2x[None, :]
-            det = e1x[None, :] * hx + e1y[None, :] * hy + e1z[None, :] * hz
-            det_ok = jnp.abs(det) >= eps
-            f = 1.0 / jnp.where(det_ok, det, 1.0)
-            sx = ox[:, None] - p1x[None, :]
-            sy = oy[:, None] - p1y[None, :]
-            sz = oz[:, None] - p1z[None, :]
-            u = f * (sx * hx + sy * hy + sz * hz)
-            qx = sy * e1z[None, :] - sz * e1y[None, :]
-            qy = sz * e1x[None, :] - sx * e1z[None, :]
-            qz = sx * e1y[None, :] - sy * e1x[None, :]
-            v = f * (dx[:, None] * qx + dy[:, None] * qy + dz[:, None] * qz)
-            t = f * (e2x[None, :] * qx + e2y[None, :] * qy + e2z[None, :] * qz)
-            ok = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-                  & (t >= 0.0) & (t < maxt[:, None]))
-            return found | jnp.any(ok, axis=1).astype(jnp.int32)
-
-        return jax.lax.cond(any_hit, test, lambda f: f, found)
-
-    def super_body(si, found):
-        tmin, tmax = _slab_overlap(super_ref, si, ox, oy, oz, ix, iy, iz)
-        overlap = (tmax >= tmin) & (tmax >= 0.0) & (tmin < maxt) & (found == 0)
-
-        def descend(found):
-            return jax.lax.fori_loop(
-                si * super_width, (si + 1) * super_width, body, found)
-
-        return jax.lax.cond(jnp.any(overlap), descend, lambda f: f, found)
-
-    found = jax.lax.fori_loop(
-        0, n_super, super_body, jnp.zeros((rt,), jnp.int32))
-    hit_ref[0, :] = found
-
-
-# ---------------------------------------------------------------------------
-# MXU variant: Möller-Trumbore as a matmul.
-#
-# Each per-(ray, triangle) quantity in Möller-Trumbore is a scalar triple
-# product, hence LINEAR in the 10-dim ray feature vector
-#     rayF = [d, o x d, o, 1]
-# (Plücker-coordinate factorization):
-#     det   = e1·(d x e2)      =  d·(e2 x e1)
-#     s·h   = (o-p1)·(d x e2)  =  (o x d)·e2 + d·(p1 x e2)
-#     d·q   = d·((o-p1) x e1)  = -(o x d)·e1 + d·(e1 x p1)
-#     e2·q  = (o-p1)·(e1 x e2) =  o·n' - p1·n'          (n' = e1 x e2)
-# so a whole cluster test is ONE (rays, 10) @ (10, 4*leaf) matmul on the MXU
-# (the systolic array — where TPU FLOPs live), leaving only sign tests,
-# one divide, and the min/argmin on the VPU. u = (s·h)/det, v = (d·q)/det,
-# t = (e2·q)/det reproduce the reference's math exactly
-# (src/shape.rs:437-459).
-# ---------------------------------------------------------------------------
-
-_HIGHEST = jax.lax.Precision.HIGHEST
-# MT pair-test matmul precision. Full f32: measured FASTER (79.6M rays/s
-# cow 1080p) than the 1-pass bf16 DEFAULT (75.1M) — the pair-test dot is
-# K=10, so MXU passes are not the bottleneck, and bf16 t values perturb the
-# traversal's early exits. (Precision.HIGH is unsupported by Mosaic.)
-_MT_PRECISION = jax.lax.Precision.HIGHEST
-
-
-def _tri_features(p1, e1, e2, leaf: int):
-    """Per-triangle coefficient matrix (10, C*4*leaf), grouped per cluster as
-    [det | s·h | d·q | e2·q] column blocks of `leaf` each."""
-    p1 = p1.astype(jnp.float32)
-    e1 = e1.astype(jnp.float32)
-    e2 = e2.astype(jnp.float32)
-    n = jnp.cross(e1, e2)
-    z3 = jnp.zeros_like(n)
-    z1 = jnp.zeros_like(p1[:, :1])
-    det_f = jnp.concatenate([-n, z3, z3, z1], axis=1)                   # (T, 10)
-    sh_f = jnp.concatenate([jnp.cross(p1, e2), e2, z3, z1], axis=1)
-    dq_f = jnp.concatenate([jnp.cross(e1, p1), -e1, z3, z1], axis=1)
-    eq_f = jnp.concatenate(
-        [z3, z3, n, -jnp.sum(p1 * n, axis=1, keepdims=True)], axis=1)
-    t = p1.shape[0]
-    c = t // leaf
-    q = jnp.stack([det_f, sh_f, dq_f, eq_f], axis=1)                   # (T, 4, 10)
-    q = q.reshape(c, leaf, 4, 10).transpose(0, 2, 1, 3)                # (C, 4, L, 10)
-    return q.reshape(c * 4 * leaf, 10).T                               # (10, 4T)
-
-
-def _ray_features(o, d):
-    """(R, 10) = [d, o x d, o, 1] per ray."""
-    o = o.astype(jnp.float32)
-    d = d.astype(jnp.float32)
-    return jnp.concatenate(
-        [d, jnp.cross(o, d), o, jnp.ones_like(o[:, :1])], axis=1)
-
-
-def _ray_features_t(o, d):
-    """(10, R) TRANSPOSED ray features, built from (R,) component columns so
-    every row is a full-lane vector. The kernels' schedule math (slab tests,
-    union gates, seeds) reads (1, rt) rows out of this layout — full 128-lane
-    VPU occupancy — where the old (rt, 10) layout forced (rt, 1) column ops
-    at 1/128 occupancy (measured: the entire ~6 ms 'sky floor' of a 1.84M-ray
-    sweep was this, constant across tile sizes)."""
-    o = o.astype(jnp.float32)
-    d = d.astype(jnp.float32)
-    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    cx = oy * dz - oz * dy
-    cy = oz * dx - ox * dz
-    cz = ox * dy - oy * dx
-    return jnp.stack(
-        [dx, dy, dz, cx, cy, cz, ox, oy, oz, jnp.ones_like(ox)])
-
-
-def _aabb_cols(cluster_aabb):
-    """(C, 8) box table: [lo_xyz | hi_xyz | 0 0] — the transposed-schedule
-    kernels slice (C, 1) columns out of it (C is small, so the sublane-major
-    column ops are cheap; the (C, rt) outer-product slab tests put rays on
-    the lane axis)."""
-    C = cluster_aabb.shape[0]
-    return jnp.concatenate(
-        [cluster_aabb.astype(jnp.float32),
-         jnp.zeros((C, 2), jnp.float32)], axis=1)
-
-
-def _slab_entries_t(rayft_ref, aabb_ref, maxt_row=None, want_exit=False,
-                    signed=False):
-    """Transposed-orientation traversal schedule. rayft_ref: (10, rt) rows
-    [d | o x d | o | 1]; aabb_ref: (C, 8) columns [lo_xyz | hi_xyz | pad].
-    maxt_row: optional (1, rt) per-ray bound.
-
-    Returns entry (C, 1): the earliest conservative entry t of any ray into
-    each cluster (BIG where no ray overlaps; empty/padding boxes masked),
-    plus (want_exit) exit (1, rt): each ray's latest conservative exit out
-    of any overlapped cluster (-BIG for rays overlapping nothing).
-
-    Row-major _slab_entries is retired; in this layout: rays live on the
-    LANE axis throughout, so the per-ray work runs at full VPU occupancy and
-    the (C, rt) intermediates use C-row sublane tiles."""
-    big = jnp.float32(BIG)
-    empty = None
-    for ax in range(3):
-        e = aabb_ref[:, ax:ax + 1] > aabb_ref[:, 3 + ax:4 + ax]   # (C, 1)
-        empty = e if empty is None else (empty | e)
-    tmin = None
-    tmax = None
-    for ax in range(3):
-        dax = rayft_ref[ax:ax + 1, :]                 # (1, rt)
-        oax = rayft_ref[6 + ax:7 + ax, :]
-        near0 = jnp.abs(dax) < 1e-30
-        inv = jnp.where(near0, jnp.where(dax >= 0, big, -big),
-                        1.0 / jnp.where(near0, 1.0, dax))
-        lo = aabb_ref[:, ax:ax + 1]                   # (C, 1)
-        hi = aabb_ref[:, 3 + ax:4 + ax]
-        t1 = (lo - oax) * inv                         # (C, rt)
-        t2 = (hi - oax) * inv
-        lo_t = jnp.minimum(t1, t2)
-        hi_t = jnp.maximum(t1, t2)
-        tmin = lo_t if tmin is None else jnp.maximum(tmin, lo_t)
-        tmax = hi_t if tmax is None else jnp.minimum(tmax, hi_t)
-    ov = (tmax >= tmin) & ~empty
-    if not signed:
-        ov = ov & (tmax >= 0.0)
-    if maxt_row is not None:
-        ov = ov & (tmin < maxt_row)
-    entry_r = jnp.where(ov, tmin if signed else jnp.maximum(tmin, 0.0), big)
-    entry = jnp.min(entry_r, axis=1, keepdims=True)   # (C, 1)
-    if want_exit:
-        exit_row = jnp.max(jnp.where(ov, tmax, -big), axis=0,
-                           keepdims=True)             # (1, rt)
-        return entry, exit_row
-    return entry
-
-
-def _union_gate_t(rayft_ref, aabb_ref, maxt_row=None, signed=False):
-    """Tile gate: one union box vs
-    the tile's rays, all math on (1, rt) full-lane rows."""
-    big = jnp.float32(BIG)
-    lo, hi = [], []
-    for ax in range(3):
-        e = aabb_ref[:, ax:ax + 1] > aabb_ref[:, 3 + ax:4 + ax]
-        lo.append(jnp.min(jnp.where(e, big, aabb_ref[:, ax:ax + 1])))
-        hi.append(jnp.max(jnp.where(e, -big, aabb_ref[:, 3 + ax:4 + ax])))
-    tmin = None
-    tmax = None
-    for ax in range(3):
-        dax = rayft_ref[ax:ax + 1, :]
-        oax = rayft_ref[6 + ax:7 + ax, :]
-        near0 = jnp.abs(dax) < 1e-30
-        inv = jnp.where(near0, jnp.where(dax >= 0, big, -big),
-                        1.0 / jnp.where(near0, 1.0, dax))
-        t1 = (lo[ax] - oax) * inv
-        t2 = (hi[ax] - oax) * inv
-        lo_t = jnp.minimum(t1, t2)
-        hi_t = jnp.maximum(t1, t2)
-        tmin = lo_t if tmin is None else jnp.maximum(tmin, lo_t)
-        tmax = hi_t if tmax is None else jnp.minimum(tmax, hi_t)
-    ov = (tmax >= tmin) & (lo[0] <= hi[0])
-    if not signed:
-        ov = ov & (tmax >= 0.0)
-    if maxt_row is not None:
-        ov = ov & (tmin < maxt_row)
-    return jnp.any(ov)
-
-
-def _mt_cluster_mxu(rayf, feat_ref, c, leaf: int, eps: float,
-                    with_uv: bool = False, t_layout: bool = False):
-    """One cluster's Möller-Trumbore on the MXU. Returns (t, ok) (RT, L)
-    each, plus (u, v) when with_uv (the barycentric coordinates — the
-    smooth-triangle payload the reference stubs out,
-    src/intersection.rs:381-386). t_layout=True takes rayf as the
-    TRANSPOSED (10, RT) feature block and contracts its sublane axis — the
-    MXU is orientation-agnostic and the transposed-schedule kernels carry
-    only that layout."""
-    s = pl.ds(c * (4 * leaf), 4 * leaf)
-    dims = (((0,), (0,)), ((), ())) if t_layout else (((1,), (0,)), ((), ()))
-    w = jax.lax.dot_general(
-        rayf, feat_ref[:, s],
-        dimension_numbers=dims,
-        precision=_MT_PRECISION,
-        preferred_element_type=jnp.float32,
-    )                                           # (RT, 4L)
-    det = w[:, 0 * leaf:1 * leaf]
-    sh = w[:, 1 * leaf:2 * leaf]
-    dq = w[:, 2 * leaf:3 * leaf]
-    eq = w[:, 3 * leaf:4 * leaf]
-    det_ok = jnp.abs(det) >= eps
-    f = 1.0 / jnp.where(det_ok, det, 1.0)
-    u = f * sh
-    v = f * dq
-    t = f * eq
-    ok = (det_ok & (u >= 0.0) & (u <= 1.0)
-          & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0))
-    if with_uv:
-        return t, ok, u, v
-    return t, ok
-
-
-def _kernel_mxu(rayf_ref, *refs, leaf: int, eps: float, with_n: bool,
-                with_uv: bool = False, with_sn: bool = False,
-                with_t0: bool = False):
-    """Closest hit over an in-kernel front-to-back cluster schedule.
-
-    The tile's per-cluster entry ts are computed once up front
-    (_slab_entries_t); the while_loop then extracts the nearest unvisited
-    cluster each iteration (masked argmin over the (1, C) work vector —
-    a selection sort fused with the traversal, so no sort pass and no
-    schedule tables ever exist). Zero wasted iterations: exactly the
-    clusters some ray overlaps are visited, in entry order, and the loop
-    exits as soon as every ray's best hit precedes the nearest remaining
-    cluster's conservative entry t.
-
-    Per-ray t_best is SEEDED with the ray's conservative cluster-exit bound
-    (plus carried t0 when present): any achievable hit lies inside some
-    overlapped cluster's slab interval, so miss/parked lanes start with a
-    finite (or -BIG) bound instead of BIG and no longer pin t_max — tiles
-    containing sky pixels or parked secondary lanes now take the ordered
-    early exit too. Seeded lanes that win nothing report idx == -1 (their
-    t output is the seed; the jit wrapper masks it back to BIG).
-
-    with_t0=True prepends a (rt, 1) carried-bound input: clusters at or
-    beyond a ray's t0 are culled from its schedule and only hits strictly
-    before t0 win — the cross-superblock carry of the HBM streaming path.
-
-    with_n=True additionally selects the winning triangle's payload (its
-    unit world normal, nrm_ref rows) IN-KERNEL via the winner one-hot — an
-    XLA-side (R,)-row gather costs ~5 ns/row on v5 lite (~10 ms/sweep at
-    1080p), while the cluster's normal slab is already VMEM-resident here.
-
-    with_sn=True (smooth meshes) blends the winner's three corner normals
-    with its barycentric (u, v) IN-KERNEL from a (9, T) corner-normal slab —
-    replacing the former XLA-side (R, 9) gather + separate uv JVP recompute.
-    with_uv=True returns the raw winner (u, v) instead (used when the
-    corner slabs don't fit VMEM — the streaming path)."""
-    refs = list(refs)
-    t0_ref = refs.pop(0) if with_t0 else None
-    feat_ref = refs.pop(0)
-    nrm_ref = refs.pop(0) if with_n else None
-    snc_ref = refs.pop(0) if with_sn else None
-    aabb_ref = refs.pop(0)
-    t_ref, idx_ref = refs.pop(0), refs.pop(0)
-    out_pay_ref = refs.pop(0) if (with_n or with_uv or with_sn) else None
-    rayf = rayf_ref[:, :]                        # (10, RT) transposed
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    maxt = t0_ref[:, :] if with_t0 else None     # (1, RT)
-
-    # tile gate: one union-box test decides whether the (C, rt) schedule is
-    # worth computing at all — sky-only tiles and streamed blocks culled by
-    # the carried t_best skip straight to the miss outputs
-    gate = _union_gate_t(rayf_ref, aabb_ref, maxt_row=maxt)
-
-    @pl.when(jnp.logical_not(gate))
-    def _skip():
-        t_ref[0, :] = jnp.full((rt,), big, jnp.float32)
-        idx_ref[0, :] = jnp.full((rt,), -1, jnp.int32)
-        if with_n or with_sn:
-            out_pay_ref[0, :] = jnp.zeros((rt,), jnp.float32)
-            out_pay_ref[1, :] = jnp.zeros((rt,), jnp.float32)
-            out_pay_ref[2, :] = jnp.zeros((rt,), jnp.float32)
-        elif with_uv:
-            out_pay_ref[0, :] = jnp.zeros((rt,), jnp.float32)
-            out_pay_ref[1, :] = jnp.zeros((rt,), jnp.float32)
-
-    @pl.when(gate)
-    def _work():
-        _kernel_mxu_body(
-            rayf_ref, rayf, maxt, t0_ref, feat_ref, nrm_ref, snc_ref,
-            aabb_ref, t_ref, idx_ref, out_pay_ref, leaf=leaf, eps=eps,
-            with_n=with_n, with_uv=with_uv, with_sn=with_sn, with_t0=with_t0)
-
-
-def _kernel_mxu_body(rayf_ref, rayf, maxt, t0_ref, feat_ref, nrm_ref,
-                     snc_ref, aabb_ref, t_ref, idx_ref, out_pay_ref, *,
-                     leaf: int, eps: float, with_n: bool, with_uv: bool,
-                     with_sn: bool, with_t0: bool):
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    entry, exit_row = _slab_entries_t(rayf_ref, aabb_ref, maxt_row=maxt,
-                                      want_exit=True)
-    C = entry.shape[0]
-    lanes2 = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0)
-    # seed margin: exit is a slab-test t, the hit a Möller-Trumbore t — the
-    # two round differently by a few ulps, so pad the bound before seeding
-    seed = exit_row[0, :] * 1.00001 + 1e-4
-    if with_t0:
-        seed = jnp.minimum(seed, t0_ref[0, :])
-    t_best0 = jnp.minimum(seed, big)
-
-    def pop(work):
-        """Nearest unvisited cluster; ties resolve to the lowest cluster id.
-        Returns (entry t, cluster id, work with it removed)."""
-        m = jnp.min(work)
-        c = jnp.min(jnp.where(work == m, lanes2, jnp.int32(2**30)))
-        return m, c, jnp.where(lanes2 == c, big, work)
-
-    def probe(c):
-        """Test cluster c against the tile INDEPENDENTLY of the running
-        best: returns (tmin_c, local, pay). Probes have no data dependence
-        on each other, so an iteration's four probes issue as four
-        overlapping MT-matmul + lane-reduction chains; only the cheap
-        elementwise fold below is serial."""
-        want_uv = with_uv or with_sn
-        mt = _mt_cluster_mxu(rayf, feat_ref, c, leaf, eps, with_uv=want_uv,
-                             t_layout=True)
-        t, ok = mt[0], mt[1]
-        tt = jnp.where(ok, t, big)
-        tmin_c = jnp.min(tt, axis=1)
-        lane = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 1)
-        local = jnp.min(
-            jnp.where(tt <= tmin_c[:, None], lane, jnp.int32(2**30)), axis=1)
-        pay = None
-        if with_n:
-            onehot = lane == local[:, None]      # (RT, L)
-            s = pl.ds(pl.multiple_of(c * leaf, leaf), leaf)
-            pay = tuple(
-                jnp.sum(jnp.where(onehot, nrm_ref[k, s][None, :], 0.0),
-                        axis=1) for k in range(3))
-        elif with_sn:
-            # winner (u, v) + the 9 corner-normal components, blended here:
-            # n = (1-u-v) sn1 + u sn2 + v sn3 (normalized outside)
-            onehot = lane == local[:, None]      # (RT, L)
-            s = pl.ds(pl.multiple_of(c * leaf, leaf), leaf)
-            u = jnp.sum(jnp.where(onehot, mt[2], 0.0), axis=1)
-            v = jnp.sum(jnp.where(onehot, mt[3], 0.0), axis=1)
-            w0 = 1.0 - u - v
-            pay = tuple(
-                w0 * jnp.sum(jnp.where(onehot, snc_ref[ax, s][None, :], 0.0), axis=1)
-                + u * jnp.sum(jnp.where(onehot, snc_ref[3 + ax, s][None, :], 0.0), axis=1)
-                + v * jnp.sum(jnp.where(onehot, snc_ref[6 + ax, s][None, :], 0.0), axis=1)
-                for ax in range(3))
-        elif with_uv:
-            onehot = lane == local[:, None]      # (RT, L)
-            pay = (jnp.sum(jnp.where(onehot, mt[2], 0.0), axis=1),
-                   jnp.sum(jnp.where(onehot, mt[3], 0.0), axis=1))
-        return tmin_c, local, pay
-
-    def fold(c, gate, probed, t_best, idx_best, payload):
-        """Fold one probe's winners into the running state (elementwise;
-        gate=False makes it a no-op for empty quad slots)."""
-        tmin_c, local, pay = probed
-        better = (tmin_c < t_best) & gate
-        if pay is not None:
-            payload = tuple(jnp.where(better, sel, prev)
-                            for sel, prev in zip(pay, payload))
-        t_best = jnp.where(better, tmin_c, t_best)
-        idx_best = jnp.where(
-            better, (c * leaf + local).astype(jnp.int32), idx_best)
-        return t_best, idx_best, payload
-
-    # the loop carries the NEXT selection (m, c) and the running max of
-    # t_best: cond is pure carried scalars, and each body issues TWO
-    # independent cluster probes per iteration barrier whose MT/reduction
-    # chains overlap, then two cheap elementwise folds (Mosaic can't
-    # software-pipeline across while_loop iterations). The second slot may
-    # be empty (early-exit granularity): gated to a no-op fold. QUAD visits
-    # were measured SLOWER (117.3M vs 132.5M rays/s on the cow frame): the
-    # four pops serialize — each argmin depends on the previous pop's
-    # masked work vector — so widening the iteration lengthens the critical
-    # chain more than it saves in barriers (BASELINE.md negative results).
-    def cond(carry):
-        m, t_max = carry[1], carry[3]
-        # ordered early exit: every ray already has a hit at or before the
-        # nearest remaining cluster's entry point
-        return (m < big) & (t_max > m)
-
-    def body(carry):
-        work, m, c, t_max, t_best, idx_best = carry[:6]
-        payload = carry[6:]
-        m2, c2, work = pop(work)
-        m_next, c_next, work = pop(work)
-        gate2 = (m2 < big) & (t_max > m2)
-        c2 = jnp.where(gate2, c2, 0)             # keep the ds slice in range
-        pr1 = probe(c)
-        pr2 = probe(c2)
-        t_best, idx_best, payload = fold(
-            c, jnp.bool_(True), pr1, t_best, idx_best, payload)
-        t_best, idx_best, payload = fold(
-            c2, gate2, pr2, t_best, idx_best, payload)
-        t_max = jnp.max(t_best)
-        return (work, m_next, c_next, t_max, t_best, idx_best) + payload
-
-    m0, c0, work0 = pop(entry)
-    init = (work0, m0, c0, jnp.max(t_best0),
-            t_best0,
-            jnp.full((rt,), -1, jnp.int32))
-    if with_n or with_uv or with_sn:
-        z = jnp.zeros((rt,), jnp.float32)
-        init = init + ((z, z) if with_uv else (z, z, z))
-    out = jax.lax.while_loop(cond, body, init)
-    t_ref[0, :] = out[4]
-    idx_ref[0, :] = out[5]
-    if with_n or with_sn:
-        out_pay_ref[0, :] = out[6]
-        out_pay_ref[1, :] = out[7]
-        out_pay_ref[2, :] = out[8]
-    elif with_uv:
-        out_pay_ref[0, :] = out[6]
-        out_pay_ref[1, :] = out[7]
-
-
-def _mt_cluster_mxu_signed(rayf, feat_ref, c, leaf: int, eps: float,
-                           t_layout: bool = False):
-    """_mt_cluster_mxu WITHOUT the t >= 0 gate: crossings behind the ray
-    origin stay valid. The reference's containers walk runs over the FULL
-    sorted intersection list including negative ts
-    (src/intersection.rs:29-62 walks xs; only hit() filters t >= 0)."""
-    s = pl.ds(c * (4 * leaf), 4 * leaf)
-    dims = (((0,), (0,)), ((), ())) if t_layout else (((1,), (0,)), ((), ()))
-    w = jax.lax.dot_general(
-        rayf, feat_ref[:, s],
-        dimension_numbers=dims,
-        precision=_MT_PRECISION,
-        preferred_element_type=jnp.float32,
-    )
-    det = w[:, 0 * leaf:1 * leaf]
-    sh = w[:, 1 * leaf:2 * leaf]
-    dq = w[:, 2 * leaf:3 * leaf]
-    eq = w[:, 3 * leaf:4 * leaf]
-    det_ok = jnp.abs(det) >= eps
-    f = 1.0 / jnp.where(det_ok, det, 1.0)
-    u = f * sh
-    v = f * dq
-    t = f * eq
-    ok = det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-    return t, ok
-
-
-def _crossing_kernel_mxu(rayf_ref, maxt_ref, hitgid_ref, feat_ref, cid_ref,
-                         aabb_ref, cnt_ref, last_ref, *, leaf: int,
-                         eps: float, n_containers: int):
-    """Per-container crossing census for the n1/n2 refraction walk: for each
-    ray and each container slot k, count the triangle crossings with
-    t < t_hit (NEGATIVE ts included — see _mt_cluster_mxu_signed) and track
-    the latest such t. Parity of the count == "ray currently inside
-    container k"; the max-t winner is the containers stack's top.
-
-    hitgid excludes the hit triangle itself from its own census (this sweep
-    recomputes t, which can land an ulp on either side of the kernel's
-    t_hit and flip the parity of the very crossing being shaded).
-
-    No early exit is possible (every crossing must be counted), but the
-    schedule still skips clusters no ray's t<maxt segment overlaps, and the
-    wrapper masks clusters that contain no container triangles at all.
-    """
-    rayf = rayf_ref[:, :]                        # (10, RT) transposed
-    maxt_row = maxt_ref[:, :]                    # (1, RT)
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    gate = _union_gate_t(rayf_ref, aabb_ref, maxt_row=maxt_row, signed=True)
-
-    @pl.when(jnp.logical_not(gate))
-    def _skip():
-        for k in range(n_containers):
-            cnt_ref[k, :] = jnp.zeros((rt,), jnp.int32)
-            last_ref[k, :] = jnp.full((rt,), -big, jnp.float32)
-
-    @pl.when(gate)
-    def _work():
-        maxt_col = maxt_row[0, :][:, None]       # (RT, 1) for the MT bound
-        hitgid = hitgid_ref[0, :][:, None]       # (RT, 1) i32
-        entry = _slab_entries_t(rayf_ref, aabb_ref, maxt_row=maxt_row,
-                                signed=True)
-        C = entry.shape[0]
-        lanes2 = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0)
-
-        def pop(work):
-            m = jnp.min(work)
-            c = jnp.min(jnp.where(work == m, lanes2, jnp.int32(2**30)))
-            return m, c, jnp.where(lanes2 == c, big, work)
-
-        def cond(carry):
-            return carry[1] < big
-
-        def body(carry):
-            work, m, c = carry[:3]
-            cnt = carry[3]
-            last = carry[4]
-            m_next, c_next, work = pop(work)
-            t, ok = _mt_cluster_mxu_signed(rayf, feat_ref, c, leaf, eps,
-                                           t_layout=True)
-            ok = ok & (t < maxt_col)
-            lane = jax.lax.broadcasted_iota(jnp.int32, t.shape, 1)
-            gid = c * leaf + lane               # global triangle ids (RT, L)
-            ok = ok & (gid != hitgid)
-            s = pl.ds(pl.multiple_of(c * leaf, leaf), leaf)
-            cid = cid_ref[0, s][None, :]        # (1, L) container slots
-            new_cnt, new_last = [], []
-            for k in range(n_containers):
-                mk = ok & (cid == k)
-                new_cnt.append(cnt[k] + jnp.sum(mk, axis=1, dtype=jnp.int32))
-                new_last.append(jnp.maximum(
-                    last[k], jnp.max(jnp.where(mk, t, -big), axis=1)))
-            return (work, m_next, c_next, tuple(new_cnt), tuple(new_last))
-
-        m0, c0, work0 = pop(entry)
-        cnt0 = tuple(jnp.zeros((rt,), jnp.int32) for _ in range(n_containers))
-        last0 = tuple(jnp.full((rt,), -big, jnp.float32)
-                      for _ in range(n_containers))
-        out = jax.lax.while_loop(cond, body, (work0, m0, c0, cnt0, last0))
-        for k in range(n_containers):
-            cnt_ref[k, :] = out[3][k]
-            last_ref[k, :] = out[4][k]
-
-
-def _kernel_mxu_cs(rayf_ref, feat_ref, nrm_ref, aabb_ref, lp_ref,
-                   t_ref, idx_ref, n_ref, sh_ref, *, leaf: int, eps: float,
-                   with_sn: bool = False):
-    """FUSED closest-hit + shadow-occlusion pass for pure-mesh scenes: one
-    kernel launch per node instead of two. Phase 1 is the standard closest
-    traversal (_kernel_mxu_body, with_n). Phase 2 derives the shadow ray
-    IN-REGISTERS on (rt,) lane vectors, replicating the integrator's exact
-    formulas (prepare_hit3 normal flip + over_point; color_at facing test;
-    is_shadowed direction/distance/live semantics — reference:
-    src/intersection.rs:17-77, src/material.rs:57-67, src/world.rs:100-114).
-    Phase 3 runs the any-hit loop on the derived rays against the SAME
-    VMEM-resident tables — the shadow sweep's launch, ray-feature stream and
-    HBM round-trip of the wavefront state disappear.
-
-    Outputs: t/idx/n as mesh_closest_hit_mxu(tri_n=...), plus sh (1, rt)
-    i32: 1 where the mesh occludes the light from the hit's over_point
-    (0 for misses, back-facing lanes, and unoccluded rays).
-
-    with_sn=True reads nrm_ref as the (9, T) corner-normal slab and blends
-    the winner's corners in phase 1 (smooth meshes); phase 2 then
-    normalizes the blend before the flip (mirroring closest_hit's
-    normalize of the sn payload). The n OUTPUT stays the raw blend so the
-    public contract matches mesh_closest_hit_mxu(tri_sn=...)."""
-    rayf = rayf_ref[:, :]                        # (10, RT)
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    gate = _union_gate_t(rayf_ref, aabb_ref)
-
-    @pl.when(jnp.logical_not(gate))
-    def _skip():
-        t_ref[0, :] = jnp.full((rt,), big, jnp.float32)
-        idx_ref[0, :] = jnp.full((rt,), -1, jnp.int32)
-        n_ref[0, :] = jnp.zeros((rt,), jnp.float32)
-        n_ref[1, :] = jnp.zeros((rt,), jnp.float32)
-        n_ref[2, :] = jnp.zeros((rt,), jnp.float32)
-        sh_ref[0, :] = jnp.zeros((rt,), jnp.int32)
-
-    @pl.when(gate)
-    def _work():
-        # ---- phase 1: closest hit (writes t/idx/n refs) ----
-        _kernel_mxu_body(
-            rayf_ref, rayf, None, None, feat_ref,
-            None if with_sn else nrm_ref,
-            nrm_ref if with_sn else None, aabb_ref,
-            t_ref, idx_ref, n_ref, leaf=leaf, eps=eps, with_n=not with_sn,
-            with_uv=False, with_sn=with_sn, with_t0=False)
-
-        # ---- phase 2: shadow-ray derivation on (rt,) lane vectors ----
-        t_best = t_ref[0, :]
-        idx = idx_ref[0, :]
-        hit_ok = idx >= 0
-        t_safe = jnp.where(hit_ok, t_best, 1.0)
-        dx, dy, dz = rayf[0, :], rayf[1, :], rayf[2, :]
-        ox, oy, oz = rayf[6, :], rayf[7, :], rayf[8, :]
-        px = ox + dx * t_safe
-        py = oy + dy * t_safe
-        pz = oz + dz * t_safe
-        # phase-1 payload: unit flat normal (tri_n table rows) or the raw
-        # smooth corner blend — normalized here exactly as closest_hit
-        # normalizes the sn payload; then flipped toward the eye exactly as
-        # prepare_hit3
-        nx, ny, nz = n_ref[0, :], n_ref[1, :], n_ref[2, :]
-        if with_sn:
-            nsq = nx * nx + ny * ny + nz * nz
-            nsafe = jnp.where(nsq > 0.0, nsq, 1.0)
-            ninv = jnp.where(nsq > 0.0, jnp.sqrt(nsafe) ** -1, 0.0)
-            nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
-        inside = (nx * (-dx) + ny * (-dy) + nz * (-dz)) < 0.0
-        nx = jnp.where(inside, -nx, nx)
-        ny = jnp.where(inside, -ny, ny)
-        nz = jnp.where(inside, -nz, nz)
-        lp0, lp1, lp2 = lp_ref[0, 0], lp_ref[0, 1], lp_ref[0, 2]
-        # facing test from the hit POINT (color_at)
-        fx, fy, fz = lp0 - px, lp1 - py, lp2 - pz
-        fsq = fx * fx + fy * fy + fz * fz
-        fsafe = jnp.where(fsq > 0.0, fsq, 1.0)
-        finv = jnp.where(fsq > 0.0, jnp.sqrt(fsafe) ** -1, 0.0)
-        facing = ((fx * finv) * nx + (fy * finv) * ny
-                  + (fz * finv) * nz) >= 0.0
-        # over_point, far-parked for misses (color_at)
-        farv = jnp.float32(1e12)
-        ovx = jnp.where(hit_ok, px + nx * eps, farv)
-        ovy = jnp.where(hit_ok, py + ny * eps, farv)
-        ovz = jnp.where(hit_ok, pz + nz * eps, farv)
-        # shadow ray direction/distance/live bound (is_shadowed)
-        vx, vy, vz = lp0 - ovx, lp1 - ovy, lp2 - ovz
-        vv = vx * vx + vy * vy + vz * vz
-        dist = jnp.sqrt(jnp.maximum(vv, 1e-30))
-        sdx, sdy, sdz = vx / dist, vy / dist, vz / dist
-        live = hit_ok & facing
-        maxt = jnp.where(live, dist, -1.0)
-        cx = ovy * sdz - ovz * sdy
-        cy = ovz * sdx - ovx * sdz
-        cz = ovx * sdy - ovy * sdx
-        rayf2 = jnp.concatenate(
-            [sdx[None, :], sdy[None, :], sdz[None, :],
-             cx[None, :], cy[None, :], cz[None, :],
-             ovx[None, :], ovy[None, :], ovz[None, :],
-             jnp.ones((1, rt), jnp.float32)], axis=0)   # (10, rt)
-
-        # ---- phase 3: any-hit over the derived rays (same tables) ----
-        maxt_row = maxt[None, :]
-        active = (maxt > 0.0).astype(jnp.int32)
-        maxt_col = maxt[:, None]
-        entry = _slab_entries_t(rayf2, aabb_ref, maxt_row=maxt_row)
-        C = entry.shape[0]
-        lanes2 = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0)
-
-        def pop(work):
-            m = jnp.min(work)
-            c = jnp.min(jnp.where(work == m, lanes2, jnp.int32(2**30)))
-            return m, c, jnp.where(lanes2 == c, big, work)
-
-        def cond(carry):
-            m, n_open = carry[1], carry[3]
-            return (m < big) & (n_open > 0)
-
-        def body(carry):
-            work, m, c, n_open, found = carry
-            m2, c2, work = pop(work)
-            m_next, c_next, work = pop(work)
-            g2 = m2 < big
-            c2 = jnp.where(g2, c2, 0)
-            t, ok = _mt_cluster_mxu(rayf2, feat_ref, c, leaf, eps,
-                                    t_layout=True)
-            t2, ok2 = _mt_cluster_mxu(rayf2, feat_ref, c2, leaf, eps,
-                                      t_layout=True)
-            ok = ok & (t < maxt_col)
-            ok2 = ok2 & (t2 < maxt_col)
-            found = found | jnp.any(ok, axis=1).astype(jnp.int32) \
-                | (jnp.any(ok2, axis=1) & g2).astype(jnp.int32)
-            n_open = jnp.sum(active * (1 - found), dtype=jnp.int32)
-            return work, m_next, c_next, n_open, found
-
-        m0, c0, work0 = pop(entry)
-        out = jax.lax.while_loop(
-            cond, body, (work0, m0, c0, jnp.sum(active, dtype=jnp.int32),
-                         jnp.zeros((rt,), jnp.int32)))
-        sh_ref[0, :] = out[4]
-
-
-def _anyhit_kernel_mxu(rayf_ref, maxt_ref, feat_ref, aabb_ref, hit_ref, *,
-                       leaf: int, eps: float):
-    """Occlusion query over the in-kernel cluster schedule; exits as soon
-    as every LIVE ray in the tile is occluded. Clusters entirely beyond
-    every ray's max_t are never scheduled (per-ray bound in the slab test);
-    dead/parked lanes (max_t <= 0: they can never report a hit) are excluded
-    from the open-lane count so they cannot hold the loop open.
-    Transposed layout: rayf_ref (10, rt), maxt_ref (1, rt), aabb (C, 8)."""
-    rayf = rayf_ref[:, :]                        # (10, RT)
-    maxt_row = maxt_ref[:, :]                    # (1, RT)
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    gate = _union_gate_t(rayf_ref, aabb_ref, maxt_row=maxt_row)
-
-    @pl.when(jnp.logical_not(gate))
-    def _skip():
-        hit_ref[0, :] = jnp.zeros((rt,), jnp.int32)
-
-    @pl.when(gate)
-    def _work():
-        active = (maxt_row[0, :] > 0.0).astype(jnp.int32)
-        # the MT bound needs max_t as an (RT, 1) column once per tile
-        maxt_col = maxt_row[0, :][:, None]
-        entry = _slab_entries_t(rayf_ref, aabb_ref, maxt_row=maxt_row)
-        C = entry.shape[0]
-        lanes2 = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0)
-
-        def pop(work):
-            m = jnp.min(work)
-            c = jnp.min(jnp.where(work == m, lanes2, jnp.int32(2**30)))
-            return m, c, jnp.where(lanes2 == c, big, work)
-
-        # same carried-selection structure as _kernel_mxu: cond reads carried
-        # scalars only; TWO probes per iteration (quadding measured slower —
-        # the pops' argmin chains serialize; see _kernel_mxu_body comment),
-        # and occlusion only ORs so the gated second probe is semantically
-        # free
-        def cond(carry):
-            m, n_open = carry[1], carry[3]
-            return (m < big) & (n_open > 0)
-
-        def body(carry):
-            work, m, c, n_open, found = carry
-            m2, c2, work = pop(work)
-            m_next, c_next, work = pop(work)
-            g2 = m2 < big
-            c2 = jnp.where(g2, c2, 0)
-            t, ok = _mt_cluster_mxu(rayf, feat_ref, c, leaf, eps,
-                                    t_layout=True)
-            t2, ok2 = _mt_cluster_mxu(rayf, feat_ref, c2, leaf, eps,
-                                      t_layout=True)
-            ok = ok & (t < maxt_col)
-            ok2 = ok2 & (t2 < maxt_col)
-            found = found | jnp.any(ok, axis=1).astype(jnp.int32) \
-                | (jnp.any(ok2, axis=1) & g2).astype(jnp.int32)
-            n_open = jnp.sum(active * (1 - found), dtype=jnp.int32)
-            return work, m_next, c_next, n_open, found
-
-        m0, c0, work0 = pop(entry)
-        out = jax.lax.while_loop(
-            cond, body,
-            (work0, m0, c0, jnp.sum(active, dtype=jnp.int32),
-             jnp.zeros((rt,), jnp.int32)))
-        hit_ref[0, :] = out[4]
-
-
-def _inst_ray_features(rayft, rf_ref, i):
-    """Transform the tile's TRANSPOSED (10, rt) ray features into instance
-    i's object space: ONE (10, 10) x (10, rt) matmul against the
-    host-precomputed feature transform (rf_ref rows i*16 .. i*16+10; see
-    TlasTables.inst_rf — the cross-product block rides the cofactor
-    identity (Ao)x(Ad) = cof(A)(oxd), so the whole [d, o x d, o, 1] basis
-    maps linearly). rayf2_t[j, r] = sum_k M[k, j] rayft[k, r] — the same
-    rayf' = rayf @ M, kept in the transposed layout.
-
-    t is PRESERVED: d' = A d is not renormalized, so an object-space hit at
-    parameter t lies at the same world t — the invariant the reference's
-    Shape::intersect relies on when it transforms rays down the tree
-    (src/shape.rs:214-221). That makes the carried world-space t_best
-    directly comparable across instances."""
-    mi = rf_ref[pl.ds(pl.multiple_of(i * 16, 16), 16), :][:10, :]
-    return jax.lax.dot_general(
-        mi, rayft,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-
-
-def _slab_full_t(rayft_ref, aabb_ref):
-    """Full per-(box, ray) slab test of the tile against a (C, 8) VMEM box
-    table: returns (tmin, tmax, ov) each (C, rt) — boxes on the sublane
-    axis, rays on the lane axis (full VPU occupancy). The TLAS kernel
-    computes this ONCE per tile for the instance boxes; per-visit bounds
-    then reduce masked rows."""
-    big = jnp.float32(BIG)
-    tmin = None
-    tmax = None
-    empty = None
-    for ax in range(3):
-        e = aabb_ref[:, ax:ax + 1] > aabb_ref[:, 3 + ax:4 + ax]
-        empty = e if empty is None else (empty | e)
-    for ax in range(3):
-        dax = rayft_ref[ax:ax + 1, :]
-        oax = rayft_ref[6 + ax:7 + ax, :]
-        near0 = jnp.abs(dax) < 1e-30
-        inv = jnp.where(near0, jnp.where(dax >= 0, big, -big),
-                        1.0 / jnp.where(near0, 1.0, dax))
-        t1 = (aabb_ref[:, ax:ax + 1] - oax) * inv
-        t2 = (aabb_ref[:, 3 + ax:4 + ax] - oax) * inv
-        lo_t = jnp.minimum(t1, t2)
-        hi_t = jnp.maximum(t1, t2)
-        tmin = lo_t if tmin is None else jnp.maximum(tmin, lo_t)
-        tmax = hi_t if tmax is None else jnp.minimum(tmax, hi_t)
-    ov = (tmax >= tmin) & (tmax >= 0.0) & ~empty
-    return tmin, tmax, ov
-
-
-def _kernel_mxu_tlas(rayf_ref, feat_ref, nrm_ref, caabb_ref, iaabb_ref,
-                     rf_ref, ab_ref, imesh_ref, iobj_ref, t_ref,
-                     idx_ref, obj_ref, *refs, leaf: int, cm: int, eps: float,
-                     with_n: bool, with_sn: bool = False):
-    """Two-level instanced closest hit (TLAS): the OUTER carried-selection
-    loop pops instances front-to-back by world-AABB entry t; each visit
-    transforms the ray tile into that instance's object space
-    (_inst_ray_features) and runs the standard INNER cluster loop against
-    the shared VMEM-resident unique-mesh features. The carried world t_best
-    culls later instances' schedules exactly like superblock streaming —
-    but the geometry is resident once instead of streamed per copy.
-
-    Winner encoding: idx = instance * (cm * leaf) + local_row (mesh-local);
-    -1 for miss. The winner's OBJECT ID is also selected in-kernel (obj_ref;
-    iobj_ref rows broadcast as scalars on fold — replacing an XLA-side (R,)
-    gather). with_n selects the winner's OBJECT-space face normal and
-    rotates it to world in-registers (n_world = n_obj @ A, the row-vector
-    inverse-transpose transform of src/shape.rs:623-635; normalized by the
-    caller). with_sn (smooth instanced meshes — the smooth-triangle
-    capability the reference stubs at src/intersection.rs:381-386) reads
-    nrm_ref as the (9, Tu) OBJECT-space corner-normal slab instead, blends
-    the winner's corners with its barycentric (u, v) in-kernel, and pushes
-    the blend through the same instance inverse-transpose."""
-    rayf = rayf_ref[:, :]                        # (10, RT) transposed
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    tm = cm * leaf
-
-    gate = _union_gate_t(rayf_ref, iaabb_ref)
-
-    want_pay = with_n or with_sn
-
-    @pl.when(jnp.logical_not(gate))
-    def _skip():
-        t_ref[0, :] = jnp.full((rt,), big, jnp.float32)
-        idx_ref[0, :] = jnp.full((rt,), -1, jnp.int32)
-        obj_ref[0, :] = jnp.zeros((rt,), jnp.int32)
-        if want_pay:
-            refs[0][0, :] = jnp.zeros((rt,), jnp.float32)
-            refs[0][1, :] = jnp.zeros((rt,), jnp.float32)
-            refs[0][2, :] = jnp.zeros((rt,), jnp.float32)
-
-    @pl.when(gate)
-    def _work():
-        # full (I, rt) instance slab table ONCE per tile; the tile entry
-        # schedule, the per-ray seed and every visit's per-ray exit bound
-        # are lane-parallel reductions over it
-        tmin_a, tmax_a, ov_a = _slab_full_t(rayf_ref, iaabb_ref)
-        n_i = tmin_a.shape[0]
-        lanes_i = jax.lax.broadcasted_iota(jnp.int32, (n_i, 1), 0)
-        lanes_c = jax.lax.broadcasted_iota(jnp.int32, (cm, 1), 0)
-        entry_i = jnp.min(
-            jnp.where(ov_a, jnp.maximum(tmin_a, 0.0), big), axis=1,
-            keepdims=True)                                    # (I, 1)
-        exit_row = jnp.max(jnp.where(ov_a, tmax_a, -big), axis=0,
-                           keepdims=True)                     # (1, rt)
-        # seed from the instance-level exit bound (see _kernel_mxu: any hit
-        # lies inside some overlapped instance box)
-        t_best0 = jnp.minimum(exit_row[0, :] * 1.00001 + 1e-4, big)
-
-        def pop(work, lanes):
-            m = jnp.min(work)
-            c = jnp.min(jnp.where(work == m, lanes, jnp.int32(2**30)))
-            return m, c, jnp.where(lanes == c, big, work)
-
-        def visit_inst(i, t_best, idx_best, obj_best, payload):
-            mi = imesh_ref[i, 0]
-            obj_i = iobj_ref[i, 0]
-            rayf2 = _inst_ray_features(rayf, rf_ref, i)       # (10, rt)
-            exit_i = jnp.max(
-                jnp.where(ov_a & (lanes_i == i), tmax_a, -big), axis=0,
-                keepdims=True)                                # (1, rt)
-            bound_row = jnp.minimum(t_best[None, :],
-                                    exit_i * 1.00001 + 1e-4)  # (1, rt)
-            # caabb is laid out (M*cm, 8) columns; cm is 8-aligned so the
-            # per-mesh sublane slice is aligned
-            cab = caabb_ref[pl.ds(pl.multiple_of(mi * cm, 8), cm), :]
-            entry_c = _slab_entries_t(rayf2, cab,
-                                      maxt_row=bound_row)     # (cm, 1)
-
-            def visit_c(c, gate, t_best, idx_best, obj_best, payload):
-                """Test cluster c of this instance; gate=False makes it a
-                no-op (the possibly-empty second slot of a paired
-                iteration)."""
-                mt = _mt_cluster_mxu(rayf2, feat_ref, mi * cm + c, leaf,
-                                     eps, with_uv=with_sn, t_layout=True)
-                t, ok = mt[0], mt[1]
-                tt = jnp.where(ok, t, big)
-                tmin_c = jnp.min(tt, axis=1)
-                lane = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 1)
-                local = jnp.min(
-                    jnp.where(tt <= tmin_c[:, None], lane, jnp.int32(2**30)),
-                    axis=1)
-                better = (tmin_c < t_best) & gate
-                if want_pay:
-                    onehot = lane == local[:, None]
-                    s = pl.ds(pl.multiple_of((mi * cm + c) * leaf, leaf),
-                              leaf)
-                    if with_sn:
-                        # blend the winner's OBJECT-space corner normals
-                        # with its barycentric (u, v):
-                        # n_obj = (1-u-v) sn1 + u sn2 + v sn3
-                        u = jnp.sum(jnp.where(onehot, mt[2], 0.0), axis=1)
-                        v = jnp.sum(jnp.where(onehot, mt[3], 0.0), axis=1)
-                        w0 = 1.0 - u - v
-                        no = [
-                            w0 * jnp.sum(jnp.where(
-                                onehot, nrm_ref[ax, s][None, :], 0.0), axis=1)
-                            + u * jnp.sum(jnp.where(
-                                onehot, nrm_ref[3 + ax, s][None, :], 0.0), axis=1)
-                            + v * jnp.sum(jnp.where(
-                                onehot, nrm_ref[6 + ax, s][None, :], 0.0), axis=1)
-                            for ax in range(3)]
-                    else:
-                        no = [jnp.sum(jnp.where(onehot, nrm_ref[k, s][None, :],
-                                                0.0), axis=1) for k in range(3)]
-                    # n_world = n_obj @ A (A row-major in ab_ref[i, 0:9])
-                    nw = [no[0] * ab_ref[i, ax] + no[1] * ab_ref[i, 3 + ax]
-                          + no[2] * ab_ref[i, 6 + ax] for ax in range(3)]
-                    payload = tuple(
-                        jnp.where(better, sel, prev)
-                        for sel, prev in zip(nw, payload))
-                t_best = jnp.where(better, tmin_c, t_best)
-                idx_best = jnp.where(
-                    better, i * tm + (c * leaf + local).astype(jnp.int32),
-                    idx_best)
-                obj_best = jnp.where(better, obj_i, obj_best)
-                return t_best, idx_best, obj_best, payload
-
-            def cond_c(carry):
-                m, t_max = carry[1], carry[3]
-                return (m < big) & (t_max > m)
-
-            def body_c(carry):
-                work, m, c, t_max, t_best, idx_best, obj_best = carry[:7]
-                payload = carry[7:]
-                # paired visits: two pops' reduction chains interleave with
-                # two clusters' MT work per iteration barrier (see
-                # _kernel_mxu_body)
-                m2, c2, work = pop(work, lanes_c)
-                m_next, c_next, work = pop(work, lanes_c)
-                t_best, idx_best, obj_best, payload = visit_c(
-                    c, jnp.bool_(True), t_best, idx_best, obj_best, payload)
-                gate2 = (m2 < big) & (t_max > m2)
-                c2 = jnp.where(gate2, c2, 0)
-                t_best, idx_best, obj_best, payload = visit_c(
-                    c2, gate2, t_best, idx_best, obj_best, payload)
-                # early-exit bound: rays outside this instance's box cannot
-                # improve here — exclude them from the inner t_max
-                t_max = jnp.max(jnp.minimum(t_best, bound_row[0, :]))
-                return (work, m_next, c_next, t_max, t_best, idx_best,
-                        obj_best) + payload
-
-            m0, c0, work0 = pop(entry_c, lanes_c)
-            t_max0 = jnp.max(jnp.minimum(t_best, bound_row[0, :]))
-            init = (work0, m0, c0, t_max0, t_best, idx_best, obj_best) \
-                + payload
-            out = jax.lax.while_loop(cond_c, body_c, init)
-            return out[4], out[5], out[6], out[7:]
-
-        def cond_i(carry):
-            m, t_max = carry[1], carry[3]
-            return (m < big) & (t_max > m)
-
-        def body_i(carry):
-            work, m, i, t_max, t_best, idx_best, obj_best = carry[:7]
-            payload = carry[7:]
-            m_next, i_next, work = pop(work, lanes_i)
-            t_best, idx_best, obj_best, payload = visit_inst(
-                i, t_best, idx_best, obj_best, payload)
-            t_max = jnp.max(t_best)
-            return (work, m_next, i_next, t_max, t_best, idx_best,
-                    obj_best) + payload
-
-        m0, i0, work0 = pop(entry_i, lanes_i)
-        init = (work0, m0, i0, jnp.max(t_best0), t_best0,
-                jnp.full((rt,), -1, jnp.int32),
-                jnp.zeros((rt,), jnp.int32))
-        if want_pay:
-            z = jnp.zeros((rt,), jnp.float32)
-            init = init + (z, z, z)
-        out = jax.lax.while_loop(cond_i, body_i, init)
-        t_ref[0, :] = out[4]
-        idx_ref[0, :] = out[5]
-        obj_ref[0, :] = out[6]
-        if want_pay:
-            refs[0][0, :] = out[7]
-            refs[0][1, :] = out[8]
-            refs[0][2, :] = out[9]
-
-
-def _anyhit_kernel_tlas(rayf_ref, maxt_ref, feat_ref, caabb_ref, iaabb_ref,
-                        rf_ref, imesh_ref, hit_ref, *, leaf: int, cm: int,
-                        eps: float):
-    """Instanced occlusion query: outer loop over instances (front-to-back
-    pop — order only matters for how fast lanes close), inner any-hit
-    cluster loop per instance. Exits as soon as every live ray is occluded;
-    occluded lanes' bounds drop to -1 so later instances' schedules shed
-    them."""
-    rayf = rayf_ref[:, :]                        # (10, RT) transposed
-    maxt_row = maxt_ref[:, :]                    # (1, RT)
-    big = jnp.float32(BIG)
-    rt = rayf.shape[1]
-    gate = _union_gate_t(rayf_ref, iaabb_ref, maxt_row=maxt_row)
-
-    @pl.when(jnp.logical_not(gate))
-    def _skip():
-        hit_ref[0, :] = jnp.zeros((rt,), jnp.int32)
-
-    @pl.when(gate)
-    def _work():
-        active = (maxt_row[0, :] > 0.0).astype(jnp.int32)
-        maxt_col = maxt_row[0, :][:, None]       # (rt, 1) for the MT bound
-        entry_i = _slab_entries_t(rayf_ref, iaabb_ref, maxt_row=maxt_row)
-        n_i = entry_i.shape[0]
-        lanes_i = jax.lax.broadcasted_iota(jnp.int32, (n_i, 1), 0)
-        lanes_c = jax.lax.broadcasted_iota(jnp.int32, (cm, 1), 0)
-
-        def pop(work, lanes):
-            m = jnp.min(work)
-            c = jnp.min(jnp.where(work == m, lanes, jnp.int32(2**30)))
-            return m, c, jnp.where(lanes == c, big, work)
-
-        def visit_inst(i, found):
-            mi = imesh_ref[i, 0]
-            rayf2 = _inst_ray_features(rayf, rf_ref, i)       # (10, rt)
-            m_live = jnp.where(found[None, :] > 0, jnp.float32(-1.0),
-                               maxt_row)                      # (1, rt)
-            cab = caabb_ref[pl.ds(pl.multiple_of(mi * cm, 8), cm), :]
-            entry_c = _slab_entries_t(rayf2, cab, maxt_row=m_live)
-
-            def cond_c(carry):
-                m, n_open = carry[1], carry[3]
-                return (m < big) & (n_open > 0)
-
-            def body_c(carry):
-                work, m, c, n_open, found = carry
-                m_next, c_next, work = pop(work, lanes_c)
-                t, ok = _mt_cluster_mxu(rayf2, feat_ref, mi * cm + c, leaf,
-                                        eps, t_layout=True)
-                ok = ok & (t < maxt_col)
-                found = found | jnp.any(ok, axis=1).astype(jnp.int32)
-                n_open = jnp.sum(active * (1 - found), dtype=jnp.int32)
-                return work, m_next, c_next, n_open, found
-
-            m0, c0, work0 = pop(entry_c, lanes_c)
-            n_open0 = jnp.sum(active * (1 - found), dtype=jnp.int32)
-            out = jax.lax.while_loop(cond_c, body_c,
-                                     (work0, m0, c0, n_open0, found))
-            return out[4]
-
-        def cond_i(carry):
-            m, n_open = carry[1], carry[3]
-            return (m < big) & (n_open > 0)
-
-        def body_i(carry):
-            work, m, i, n_open, found = carry
-            m_next, i_next, work = pop(work, lanes_i)
-            found = visit_inst(i, found)
-            n_open = jnp.sum(active * (1 - found), dtype=jnp.int32)
-            return work, m_next, i_next, n_open, found
-
-        m0, i0, work0 = pop(entry_i, lanes_i)
-        out = jax.lax.while_loop(
-            cond_i, body_i,
-            (work0, m0, i0, jnp.sum(active, dtype=jnp.int32),
-             jnp.zeros((rt,), jnp.int32)))
-        hit_ref[0, :] = out[4]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("leaf", "cm", "ray_tile", "eps", "interpret"),
-)
-def mesh_closest_hit_tlas_mxu(o, d, p1, e1, e2, caabb, inst_ab, inst_rf,
-                              inst_aabb, inst_mesh, inst_obj, leaf: int,
-                              cm: int, ray_tile: int = 512,
-                              eps: float = EPSILON,
-                              interpret: bool = False, tri_n=None,
-                              tri_sn=None):
-    """Closest hit over INSTANCED geometry (two-level TLAS kernel).
-
-    p1/e1/e2: (M * cm * leaf, 3) unique meshes in OBJECT space; caabb:
-    (M * cm, 6) object-space cluster AABBs; inst_ab: (I, 12) world->object
-    [A row-major | b]; inst_aabb: (I, 6) world boxes (padding: empty);
-    inst_mesh/inst_obj: (I,) i32 unique-mesh index / object id. tri_n:
-    optional (M*cm*leaf, 3) OBJECT-space face normals — the winner's normal
-    is selected and rotated to world in-kernel (returned UNNORMALIZED;
-    zeros on miss). tri_sn: optional (M*cm*leaf, 9) OBJECT-space corner
-    normals [sn1|sn2|sn3] — the winner's corners are blended with its
-    (u, v) in-kernel and rotated to world (smooth instanced meshes);
-    mutually exclusive with tri_n.
-
-    Returns (t, enc, obj[, n]): enc = instance * (cm * leaf) + mesh-local
-    row, -1 on miss (t = BIG, obj = 0 there); obj = the winning instance's
-    object id, selected in-kernel."""
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)), constant_values=BIG)
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    n_tiles = (R + pad) // rt
-
-    feat = _tri_features(p1, e1, e2, leaf)               # (10, 4Tu)
-    rayf = _ray_features_t(o_p, d_p)                     # (10, R')
-    # per-mesh cluster boxes as (M*cm, 8) columns; cm is 8-aligned so each
-    # mesh's sublane slice is aligned
-    caabb_t = _aabb_cols(caabb)
-    iaabb_t = _aabb_cols(inst_aabb)                      # (I, 8)
-    rf = inst_rf.astype(jnp.float32)                     # (I*16, 10)
-    ab = inst_ab.astype(jnp.float32)                     # (I, 12)
-    imesh = inst_mesh.astype(jnp.int32)[:, None]         # (I, 1)
-    iobj = inst_obj.astype(jnp.int32)[:, None]           # (I, 1)
-    assert tri_n is None or tri_sn is None
-    with_n = tri_n is not None
-    with_sn = tri_sn is not None
-    want_pay = with_n or with_sn
-
-    kernel = functools.partial(_kernel_mxu_tlas, leaf=leaf, cm=cm, eps=eps,
-                               with_n=with_n, with_sn=with_sn)
-    in_specs = [
-        pl.BlockSpec((10, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec(feat.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    args = [rayf, feat]
-    if with_n or with_sn:
-        nrm = (tri_n if with_n else tri_sn).astype(jnp.float32).T  # (3|9, Tu)
-        in_specs.append(pl.BlockSpec(nrm.shape, lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(nrm)
-    else:
-        # keep the kernel signature fixed: a dummy (3, 8) slab
-        dummy = jnp.zeros((3, 8), jnp.float32)
-        in_specs.append(pl.BlockSpec(dummy.shape, lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(dummy)
-    in_specs += [
-        pl.BlockSpec(caabb_t.shape, lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec(iaabb_t.shape, lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec(rf.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec(ab.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec(imesh.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec(iobj.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-    ]
-    args += [caabb_t, iaabb_t, rf, ab, imesh, iobj]
-    out_specs = [
-        pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((1, R + pad), jnp.float32),
-        jax.ShapeDtypeStruct((1, R + pad), jnp.int32),
-        jax.ShapeDtypeStruct((1, R + pad), jnp.int32),
-    ]
-    if want_pay:
-        out_specs.append(
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((3, R + pad), jnp.float32))
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(*args)
-    t, enc, obj = out[0][0, :R], out[1][0, :R], out[2][0, :R]
-    t = jnp.where(enc >= 0, t, BIG).astype(o.dtype)
-    if want_pay:
-        return t, enc, obj, out[3][:, :R].T.astype(o.dtype)
-    return t, enc, obj
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("leaf", "cm", "ray_tile", "eps", "interpret"),
-)
-def mesh_any_hit_tlas_mxu(o, d, max_t, p1, e1, e2, caabb, inst_rf,
-                          inst_aabb, inst_mesh, leaf: int, cm: int,
-                          ray_tile: int = 512,
-                          eps: float = EPSILON, interpret: bool = False):
-    """Occlusion query over INSTANCED geometry — TLAS counterpart of
-    mesh_any_hit_mxu. Returns hit (R,) bool: some triangle in [0, max_t)."""
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)), constant_values=BIG)
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    m_p = jnp.pad(max_t, ((0, pad),), constant_values=-1.0)
-    n_tiles = (R + pad) // rt
-
-    feat = _tri_features(p1, e1, e2, leaf)
-    rayf = _ray_features_t(o_p, d_p)                     # (10, R')
-    caabb_t = _aabb_cols(caabb)                          # (M*cm, 8)
-    iaabb_t = _aabb_cols(inst_aabb)                      # (I, 8)
-    rf = inst_rf.astype(jnp.float32)
-    imesh = inst_mesh.astype(jnp.int32)[:, None]
-
-    kernel = functools.partial(_anyhit_kernel_tlas, leaf=leaf, cm=cm, eps=eps)
-    (hit,) = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((10, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(feat.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(caabb_t.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(iaabb_t.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(rf.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(imesh.shape, lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=[pl.BlockSpec((1, rt), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)],
-        out_shape=[jax.ShapeDtypeStruct((1, R + pad), jnp.int32)],
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(rayf, m_p.astype(jnp.float32)[None, :], feat, caabb_t, iaabb_t, rf,
-      imesh)
-    return hit[0, :R] != 0
-
-
-# triangles whose feature slab ((10, 4T) f32 = 160 B/tri) comfortably fits
-# VMEM alongside ray tiles; larger meshes stream in superblocks
-VMEM_TRI_BUDGET = 49152
-
-
-def _blocked(tri_p1, leaf: int, budget: int):
-    """Number of cluster superblocks needed for this mesh (1 = no split)."""
-    t = tri_p1.shape[0]
-    if t <= budget:
-        return 1
-    per_block = max(budget // leaf, 1)
-    n_c = t // leaf
-    return -(-n_c // per_block)
-
-
-def _block_tables(p1, e1, e2, aabb, n_blocks: int, leaf: int, nrm=None,
-                  cid=None):
-    """Split the triangle/cluster tables into n_blocks equal superblocks,
-    padding with empty clusters (lo > hi: never scheduled) and degenerate
-    triangles (zero edges: det-guard rejects). cid (container-slot per
-    triangle) pads with -1 (no container)."""
-    C = aabb.shape[0]
-    per_block = -(-C // n_blocks)
-    cpad = n_blocks * per_block - C
-    if cpad:
-        empty = jnp.zeros((cpad, 6), aabb.dtype)
-        empty = empty.at[:, :3].set(1.0).at[:, 3:].set(-1.0)
-        aabb = jnp.concatenate([aabb, empty])
-        z = jnp.zeros((cpad * leaf, 3), p1.dtype)
-        p1 = jnp.concatenate([p1, z])
-        e1 = jnp.concatenate([e1, z])
-        e2 = jnp.concatenate([e2, z])
-        if nrm is not None:
-            nrm = jnp.concatenate([nrm, z])
-        if cid is not None:
-            cid = jnp.concatenate(
-                [cid, jnp.full((cpad * leaf,), -1, cid.dtype)])
-    tb = per_block * leaf
-    nb = None if nrm is None else nrm.reshape(n_blocks, tb, 3)
-    cb = None if cid is None else cid.reshape(n_blocks, tb)
-    return (p1.reshape(n_blocks, tb, 3), e1.reshape(n_blocks, tb, 3),
-            e2.reshape(n_blocks, tb, 3), aabb.reshape(n_blocks, per_block, 6),
-            per_block, nb, cb)
-
-
-def _block_order(o, d, aabbb):
-    """Global front-to-back superblock order for a wavefront: per-block AABB
-    union, slab-test every ray, reduce to the earliest entry t any ray has
-    into each block, argsort. Parked rays (origin far outside) overlap
-    nothing and do not perturb the order. The streaming scan visits blocks
-    in this order so the carried per-ray t_best culls later blocks — the
-    cross-block extension of the in-kernel front-to-back cluster schedule
-    (and of the reference's hierarchy cull, src/shape.rs:399-436)."""
-    empty = jnp.any(aabbb[:, :, :3] > aabbb[:, :, 3:], axis=2)  # (B, Pb)
-    lo = jnp.min(jnp.where(empty[:, :, None], jnp.inf, aabbb[:, :, :3]),
-                 axis=1)                                        # (B, 3)
-    hi = jnp.max(jnp.where(empty[:, :, None], -jnp.inf, aabbb[:, :, 3:]),
-                 axis=1)
-    big = jnp.asarray(BIG, o.dtype)
+# clusters per group in the two-level box hierarchy
+SUPER_WIDTH = 8
+# rays per program (one ray per lane) and triangles per Möller-Trumbore tile
+BLOCK_RAYS = 128
+CHUNK = 16
+NUM_WARPS = 4
+
+# Boxes are widened by this relative margin (plus the same absolute amount)
+# so that f32 rounding in the slab test can never cull a box whose
+# triangles a ray really hits (flat, axis-aligned clusters have zero width).
+_BOX_PAD = 1e-5
+
+
+def _inv_dir(d):
     near0 = jnp.abs(d) < 1e-30
-    inv = jnp.where(near0, jnp.where(d >= 0, big, -big),
-                    1.0 / jnp.where(near0, 1.0, d))
-    t1 = (lo[None, :, :] - o[:, None, :]) * inv[:, None, :]     # (R, B, 3)
-    t2 = (hi[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    tmin = jnp.max(jnp.minimum(t1, t2), axis=2)                 # (R, B)
-    tmax = jnp.min(jnp.maximum(t1, t2), axis=2)
-    ov = (tmax >= tmin) & (tmax >= 0.0)
-    entry = jnp.min(jnp.where(ov, jnp.maximum(tmin, 0.0), big), axis=0)  # (B,)
-    return jnp.argsort(entry).astype(jnp.int32)
+    return jnp.where(near0, jnp.where(d >= 0.0, BIG, -BIG),
+                     1.0 / jnp.where(near0, 1.0, d))
 
 
-def _closest_hit_blocked(o, d, p1, e1, e2, aabb, n_blocks: int, leaf: int,
-                         ray_tile: int, eps: float, interpret: bool,
-                         tri_n=None, want_uv: bool = False):
-    """HBM-streaming path: lax.scan over cluster superblocks in GLOBAL
-    front-to-back order with a carried per-ray t_best — block k's winners
-    become block k+1's strictly-before bound (kernel input t0), so every
-    later block's in-kernel schedule culls clusters at or beyond the carried
-    hit and whole blocks behind it reduce to their DMA + an empty schedule.
-    Each block's feature slab fits VMEM; geometry stays HBM-resident."""
-    p1b, e1b, e2b, aabbb, per_block, nb, _ = _block_tables(
-        p1, e1, e2, aabb, n_blocks, leaf, nrm=tri_n)
-    empty_sup = jnp.zeros((0, 6), aabb.dtype)
-    with_n = tri_n is not None
-    order = _block_order(o, d, aabbb)
-    R = o.shape[0]
-
-    def step(carry, bi):
-        t_c, idx_c, pay_c = carry
-        blocks = (p1b[bi], e1b[bi], e2b[bi], aabbb[bi])
-        out = mesh_closest_hit_mxu(
-            o, d, blocks[0], blocks[1], blocks[2], blocks[3], empty_sup,
-            n_super=0, leaf=leaf, ray_tile=ray_tile, eps=eps,
-            interpret=interpret, vmem_tri_budget=per_block * leaf,
-            tri_n=nb[bi] if with_n else None, want_uv=want_uv, t0=t_c)
-        t_b, idx_b = out[0], out[1]
-        won = idx_b >= 0
-        t_c = jnp.where(won, t_b, t_c)
-        idx_c = jnp.where(won, idx_b + bi * (per_block * leaf), idx_c)
-        if pay_c is not None:
-            pay_c = jnp.where(won[:, None], out[2], pay_c)
-        return (t_c, idx_c, pay_c), None
-
-    pay0 = None
-    if with_n:
-        pay0 = jnp.zeros((R, 3), o.dtype)
-    elif want_uv:
-        pay0 = jnp.zeros((R, 2), o.dtype)
-    init = (jnp.full((R,), BIG, o.dtype), jnp.full((R,), -1, jnp.int32), pay0)
-    (t, idx, pay), _ = jax.lax.scan(step, init, order)
-    if with_n or want_uv:
-        return t, idx, pay
-    return t, idx
+def _slab(box_ref, b, o, inv):
+    """Entry/exit t of each ray against box b of a flat (N * 8,) table
+    [lo_xyz | hi_xyz | valid | 0], plus the box's valid flag."""
+    base = b * 8
+    tmin = tmax = None
+    for ax in range(3):
+        t1 = (box_ref[base + ax] - o[ax]) * inv[ax]
+        t2 = (box_ref[base + 3 + ax] - o[ax]) * inv[ax]
+        lo_t, hi_t = jnp.minimum(t1, t2), jnp.maximum(t1, t2)
+        tmin = lo_t if tmin is None else jnp.maximum(tmin, lo_t)
+        tmax = hi_t if tmax is None else jnp.minimum(tmax, hi_t)
+    return tmin, tmax, box_ref[base + 6] > 0.0
 
 
-def _any_hit_blocked(o, d, max_t, p1, e1, e2, aabb, n_blocks: int, leaf: int,
-                     ray_tile: int, eps: float, interpret: bool):
-    """Streaming occlusion: scan over superblocks (front-to-back, matching
-    the closest-hit scan) with a carried found mask — occluded lanes get
-    max_t = -1 so later blocks drop them from their schedules entirely."""
-    p1b, e1b, e2b, aabbb, per_block, _, _ = _block_tables(p1, e1, e2, aabb,
-                                                          n_blocks, leaf)
-    empty_sup = jnp.zeros((0, 6), aabb.dtype)
-    order = _block_order(o, d, aabbb)
-
-    def step(found, bi):
-        m = jnp.where(found, jnp.asarray(-1.0, max_t.dtype), max_t)
-        f = mesh_any_hit_mxu(
-            o, d, m, p1b[bi], e1b[bi], e2b[bi], aabbb[bi], empty_sup,
-            n_super=0, leaf=leaf, ray_tile=ray_tile, eps=eps,
-            interpret=interpret, vmem_tri_budget=per_block * leaf)
-        return found | f, None
-
-    found, _ = jax.lax.scan(step, jnp.zeros(o.shape[:1], bool), order)
-    return found
+def _any(mask):
+    return jnp.max(mask.astype(jnp.int32)) > 0
 
 
-def _crossing_blocked(o, d, t_hit, hit_gid, p1, e1, e2, aabb, cid,
-                      n_containers: int, n_blocks: int, leaf: int,
-                      ray_tile: int, eps: float, interpret: bool):
-    """Superblock streaming for the crossing census: counts sum across
-    blocks, last-crossing ts max across blocks. hit_gid is rebased per block
-    (out-of-block ids never match, so the exclusion lands exactly once)."""
-    p1b, e1b, e2b, aabbb, per_block, _, cb = _block_tables(
-        p1, e1, e2, aabb, n_blocks, leaf, cid=cid)
-    offs = jnp.arange(n_blocks, dtype=jnp.int32) * (per_block * leaf)
+def _mt_tile(tri_ref, start, o, d, eps):
+    """Möller-Trumbore (src/shape.rs:437-459) of the block's rays against
+    triangle rows [start, start + CHUNK): (t, ok), each (block_rays, CHUNK);
+    ok includes t >= 0."""
+    rows = [tri_ref[k, pl.ds(start, CHUNK)][None, :] for k in range(9)]
+    p1, e1, e2 = rows[0:3], rows[3:6], rows[6:9]
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    # pvec = d x e2; det = e1 . pvec
+    px = dy * e2[2] - dz * e2[1]
+    py = dz * e2[0] - dx * e2[2]
+    pz = dx * e2[1] - dy * e2[0]
+    det = e1[0] * px + e1[1] * py + e1[2] * pz
+    det_ok = jnp.abs(det) >= eps
+    f = 1.0 / jnp.where(det_ok, det, 1.0)
+    sx, sy, sz = ox - p1[0], oy - p1[1], oz - p1[2]
+    u = f * (sx * px + sy * py + sz * pz)
+    # qvec = s x e1
+    qx = sy * e1[2] - sz * e1[1]
+    qy = sz * e1[0] - sx * e1[2]
+    qz = sx * e1[1] - sy * e1[0]
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2[0] * qx + e2[1] * qy + e2[2] * qz)
+    ok = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t >= 0.0))
+    return t, ok
 
-    def one(block):
-        bp1, be1, be2, bab, bcid, off = block
-        return mesh_crossing_count_mxu(
-            o, d, t_hit, hit_gid - off, bp1, be1, be2, bab, bcid,
-            n_containers=n_containers, leaf=leaf, ray_tile=ray_tile,
-            eps=eps, interpret=interpret,
-            vmem_tri_budget=per_block * leaf)
 
-    cnt, last = jax.lax.map(one, (p1b, e1b, e2b, aabbb, cb, offs))
-    return jnp.sum(cnt, axis=0), jnp.max(last, axis=0)
+def _traverse(sbox_ref, box_ref, o, inv, wanted, visit, carry, *,
+              n_super: int, more=None):
+    """Two-level box walk shared by both kernels. wanted(tmin, tmax, carry)
+    -> (rays,) bool says which rays still need a box; visit(c, carry)
+    tests cluster c; more(carry), when given, ends the walk early once it
+    is False (any-hit: every live ray is occluded)."""
+
+    def box_go(ref, b, carry):
+        tmin, tmax, valid = _slab(ref, b, o, inv)
+        return valid & _any(wanted(tmin, tmax, carry))
+
+    def cluster_step(c, carry):
+        return jax.lax.cond(box_go(box_ref, c, carry), lambda cr: visit(c, cr),
+                            lambda cr: cr, carry)
+
+    def group(s, carry):
+        def inner(cr):
+            return jax.lax.fori_loop(
+                0, SUPER_WIDTH,
+                lambda k, cr2: cluster_step(s * SUPER_WIDTH + k, cr2), cr)
+        return jax.lax.cond(box_go(sbox_ref, s, carry), inner,
+                            lambda cr: cr, carry)
+
+    if more is None:
+        return jax.lax.fori_loop(0, n_super, group, carry)
+
+    def cond(state):
+        s, cr = state
+        return (s < n_super) & more(cr)
+
+    def body(state):
+        s, cr = state
+        return s + 1, group(s, cr)
+
+    return jax.lax.while_loop(cond, body, (jnp.int32(0), carry))[1]
+
+
+def _closest_kernel(ray_ref, sbox_ref, box_ref, tri_ref, t_ref, idx_ref, *,
+                    n_super: int, leaf: int, eps: float):
+    o = tuple(ray_ref[k, :] for k in range(3))
+    d = tuple(ray_ref[3 + k, :] for k in range(3))
+    inv = tuple(_inv_dir(c) for c in d)
+    n = o[0].shape[0]
+
+    def wanted(tmin, tmax, carry):
+        return (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < carry[0])
+
+    def visit(c, carry):
+        def tile(j, cr):
+            best_t, best_i = cr
+            start = c * leaf + j * CHUNK
+            t, ok = _mt_tile(tri_ref, start, o, d, eps)
+            tt = jnp.where(ok, t, BIG)
+            t_c = jnp.min(tt, axis=1)
+            i_c = jax.lax.argmin(tt, 1, jnp.int32) + start
+            better = t_c < best_t
+            return (jnp.where(better, t_c, best_t),
+                    jnp.where(better, i_c, best_i))
+        return jax.lax.fori_loop(0, leaf // CHUNK, tile, carry)
+
+    init = (jnp.full((n,), BIG, jnp.float32), jnp.full((n,), -1, jnp.int32))
+    best_t, best_i = _traverse(sbox_ref, box_ref, o, inv, wanted, visit, init,
+                               n_super=n_super)
+    t_ref[...] = best_t
+    idx_ref[...] = best_i
+
+
+def _any_kernel(ray_ref, sbox_ref, box_ref, tri_ref, hit_ref, *,
+                n_super: int, leaf: int, eps: float):
+    o = tuple(ray_ref[k, :] for k in range(3))
+    d = tuple(ray_ref[3 + k, :] for k in range(3))
+    max_t = ray_ref[6, :]
+    inv = tuple(_inv_dir(c) for c in d)
+    n = o[0].shape[0]
+    live = max_t > 0.0
+
+    def wanted(tmin, tmax, found):
+        return ((tmax >= jnp.maximum(tmin, 0.0)) & (tmin < max_t) & live
+                & (found == 0))
+
+    def visit(c, found):
+        def tile(j, fd):
+            t, ok = _mt_tile(tri_ref, c * leaf + j * CHUNK, o, d, eps)
+            hit = jnp.max((ok & (t < max_t[:, None])).astype(jnp.int32),
+                          axis=1)
+            return jnp.maximum(fd, hit)
+        return jax.lax.fori_loop(0, leaf // CHUNK, tile, found)
+
+    def more(found):
+        return _any(live & (found == 0))
+
+    found = _traverse(sbox_ref, box_ref, o, inv, wanted, visit,
+                      jnp.zeros((n,), jnp.int32), n_super=n_super, more=more)
+    hit_ref[...] = found
+
+
+def box_tables(cluster_aabb):
+    """Flat (C' * 8,) cluster and (S * 8,) group box tables for the kernels:
+    [lo_xyz | hi_xyz | valid | 0] per box, padded to a multiple of
+    SUPER_WIDTH clusters, boxes widened by _BOX_PAD; empty boxes (lo > hi)
+    are marked invalid."""
+    box = cluster_aabb.astype(jnp.float32)
+    pad = (-box.shape[0]) % SUPER_WIDTH
+    empty = jnp.tile(jnp.asarray([[1.0, 1.0, 1.0, -1.0, -1.0, -1.0]],
+                                 jnp.float32), (pad, 1))
+    box = jnp.concatenate([box, empty])
+    lo, hi = box[:, :3], box[:, 3:]
+    valid = jnp.all(lo <= hi, axis=1)
+    margin = _BOX_PAD * (1.0 + jnp.maximum(jnp.abs(lo), jnp.abs(hi)))
+    lo, hi = lo - margin, hi + margin
+    g_lo = jnp.where(valid[:, None], lo, BIG).reshape(-1, SUPER_WIDTH, 3)
+    g_hi = jnp.where(valid[:, None], hi, -BIG).reshape(-1, SUPER_WIDTH, 3)
+    g_valid = jnp.any(valid.reshape(-1, SUPER_WIDTH), axis=1)
+
+    def flat(lo, hi, ok):
+        z = jnp.zeros_like(ok, jnp.float32)[:, None]
+        return jnp.concatenate(
+            [lo, hi, ok.astype(jnp.float32)[:, None], z], axis=1).reshape(-1)
+
+    return (flat(jnp.min(g_lo, axis=1), jnp.max(g_hi, axis=1), g_valid),
+            flat(lo, hi, valid))
+
+
+def _ray_table(o, d, max_t, block_rays: int):
+    """(8, R') SoA ray rows [o | d | max_t | 0], padded to a whole number of
+    blocks with rays that overlap no box and never report a hit."""
+    r = o.shape[0]
+    pad = (-r) % block_rays
+    o = jnp.pad(o.astype(jnp.float32), ((0, pad), (0, 0)),
+                constant_values=BIG)
+    d = jnp.pad(d.astype(jnp.float32), ((0, pad), (0, 0)),
+                constant_values=1.0)
+    m = jnp.pad(max_t.astype(jnp.float32), (0, pad), constant_values=-1.0)
+    return jnp.concatenate(
+        [o.T, d.T, m[None, :], jnp.zeros_like(m)[None, :]], axis=0)
+
+
+def _call(kernel, rays, tri_p1, tri_e1, tri_e2, cluster_aabb, n_out, out_dtypes,
+          *, leaf, eps, block_rays, interpret):
+    assert leaf % CHUNK == 0 and block_rays & (block_rays - 1) == 0
+    sbox, box = box_tables(cluster_aabb)
+    tri = jnp.concatenate([tri_p1.T, tri_e1.T, tri_e2.T]).astype(jnp.float32)
+    rp = rays.shape[1]
+    kern = functools.partial(kernel, n_super=sbox.shape[0] // 8, leaf=leaf,
+                             eps=eps)
+    whole = lambda a: pl.BlockSpec(a.shape, lambda i: (0,) * a.ndim)
+    outs = pl.pallas_call(
+        kern,
+        grid=(rp // block_rays,),
+        in_specs=[pl.BlockSpec((8, block_rays), lambda i: (0, i)),
+                  whole(sbox), whole(box), whole(tri)],
+        out_specs=[pl.BlockSpec((block_rays,), lambda i: (i,))] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((rp,), dt) for dt in out_dtypes],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
+        interpret=interpret,
+        name=kernel.__name__.strip("_"),
+    )(rays, sbox, box, tri)
+    return outs
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("n_containers", "leaf", "ray_tile", "eps", "interpret",
-                     "vmem_tri_budget"),
-)
-def mesh_crossing_count_mxu(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
-                            cluster_aabb, tri_cid, n_containers: int,
-                            leaf: int, ray_tile: int = 512,
-                            eps: float = EPSILON, interpret: bool = False,
-                            vmem_tri_budget: int = VMEM_TRI_BUDGET):
-    """Per-container triangle-crossing census for the n1/n2 refraction walk
-    (reference: the containers stack of src/intersection.rs:29-62).
-
-    o/d: (R, 3); t_hit: (R,) census bound (strictly-before); hit_gid: (R,)
-    global index of the hit triangle to exclude (-2 for non-triangle hits);
-    tri_cid: (T,) i32 container slot per triangle in [0, n_containers),
-    -1 = not a container triangle.
-
-    Returns (cnt (R, K) i32, last (R, K) f32): per-container crossing count
-    and latest crossing t (-BIG where none), NEGATIVE crossings included —
-    parity(cnt) == inside, argmax(last) == containers-stack top. Clusters
-    with no container triangles are masked out of the traversal schedule.
-    Oversized meshes stream in superblocks like the other MXU entry points.
-    """
-    n_blocks = _blocked(tri_p1, leaf, vmem_tri_budget)
-    if n_blocks > 1:
-        return _crossing_blocked(
-            o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2, cluster_aabb,
-            tri_cid, n_containers, n_blocks, leaf, ray_tile, eps, interpret)
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)), constant_values=BIG)
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    t_p = jnp.pad(t_hit, ((0, pad),), constant_values=-BIG)  # padded: no work
-    g_p = jnp.pad(hit_gid, ((0, pad),), constant_values=-2)
-    n_tiles = (R + pad) // rt
-
-    feat = _tri_features(tri_p1, tri_e1, tri_e2, leaf)
-    rayf = _ray_features_t(o_p, d_p)                     # (10, R')
-    C = cluster_aabb.shape[0]
-    # mask clusters that hold no container triangle: inverted boxes are
-    # dropped by the schedule's empty-cluster check
-    has = jnp.any(tri_cid.reshape(C, leaf) >= 0, axis=1)
-    empty_box = jnp.concatenate([jnp.ones((C, 3)), -jnp.ones((C, 3))],
-                                axis=1).astype(jnp.float32)
-    aabb_t = _aabb_cols(jnp.where(has[:, None],
-                                  cluster_aabb.astype(jnp.float32),
-                                  empty_box))            # (C, 8)
-
-    kernel = functools.partial(_crossing_kernel_mxu, leaf=leaf, eps=eps,
-                               n_containers=n_containers)
-    cnt, last = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((10, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(feat.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tri_cid.shape[0]), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(aabb_t.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((n_containers, rt), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_containers, rt), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_containers, R + pad), jnp.int32),
-            jax.ShapeDtypeStruct((n_containers, R + pad), jnp.float32),
-        ],
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(rayf, t_p.astype(jnp.float32)[None, :], g_p.astype(jnp.int32)[None, :],
-      feat, tri_cid.astype(jnp.int32)[None, :], aabb_t)
-    return cnt[:, :R].T, last[:, :R].T.astype(o.dtype)
+    jax.jit, static_argnames=("leaf", "eps", "block_rays", "interpret"))
+def closest_hit(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, *, leaf: int,
+                eps: float = EPSILON, block_rays: int = BLOCK_RAYS,
+                interpret: bool = False):
+    """Closest triangle hit with t >= 0 per ray: (t (R,) f32, idx (R,) i32),
+    t == BIG and idx == -1 on a miss. tri_*: (T, 3) with T == C * leaf;
+    cluster_aabb: (C, 6) [lo | hi] (lo > hi marks an empty cluster)."""
+    r = o.shape[0]
+    rays = _ray_table(o, d, jnp.zeros((r,), jnp.float32), block_rays)
+    t, idx = _call(_closest_kernel, rays, tri_p1, tri_e1, tri_e2,
+                   cluster_aabb, 2, (jnp.float32, jnp.int32), leaf=leaf,
+                   eps=eps, block_rays=block_rays, interpret=interpret)
+    return t[:r], idx[:r]
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("n_super", "super_width", "leaf", "ray_tile", "eps",
-                     "interpret", "vmem_tri_budget", "want_uv"),
-)
-def mesh_closest_hit_mxu(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                         super_aabb, n_super: int, leaf: int,
-                         super_width: int = 8, ray_tile: int = 128,
-                         eps: float = EPSILON, interpret: bool = False,
-                         vmem_tri_budget: int = VMEM_TRI_BUDGET,
-                         tri_n=None, want_uv: bool = False, tri_sn=None,
-                         t0=None):
-    """Closest triangle hit with MXU cluster tests and an IN-KERNEL
-    front-to-back traversal schedule (every tile slab-tests the whole (6, C)
-    cluster AABB table in VMEM, then a fused selection-sort while_loop visits
-    overlapped clusters in entry order). Same contract as
-    mesh_closest_hit_pallas. (super_aabb/n_super/super_width are accepted for
-    signature parity; the schedule subsumes the hierarchy levels.)
-
-    With tri_n (T, 3) provided, the winner's row is selected in-kernel and a
-    third output n (R, 3) is returned (zeros on miss) — eliminating the
-    XLA-side normal gather from the shading path. With tri_sn (T, 9)
-    provided ([sn1 | sn2 | sn3] corner normals; smooth meshes) the winner's
-    corner rows are blended with its barycentric (u, v) in-kernel and the
-    third output is that unnormalized shading normal (R, 3). want_uv=True
-    returns the raw winner (u, v) (R, 2) instead. The three payload modes
-    are mutually exclusive.
-
-    t0 (R,) optional: carried strictly-before bound — only hits with
-    t < t0 are reported and clusters at or beyond it are never scheduled
-    (the cross-superblock carry; see _closest_hit_blocked).
-
-    Meshes whose feature slab exceeds the VMEM budget stream through the
-    kernel in cluster superblocks with a carried-t scan in global
-    front-to-back block order — HBM-resident geometry, VMEM-resident blocks
-    (tri_sn is not supported there; callers fall back to want_uv).
-    """
-    del super_aabb, n_super, super_width
-    assert sum((want_uv, tri_n is not None, tri_sn is not None)) <= 1
-    n_blocks = _blocked(tri_p1, leaf, vmem_tri_budget)
-    if n_blocks > 1:
-        assert tri_sn is None and t0 is None
-        return _closest_hit_blocked(
-            o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, n_blocks, leaf,
-            ray_tile, eps, interpret, tri_n=tri_n, want_uv=want_uv)
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)), constant_values=BIG)  # never overlaps
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    n_tiles = (R + pad) // rt
-
-    feat = _tri_features(tri_p1, tri_e1, tri_e2, leaf)   # (10, 4T)
-    rayf = _ray_features_t(o_p, d_p)                     # (10, R') transposed
-    aabb_c = _aabb_cols(cluster_aabb)                    # (C, 8)
-    with_n = tri_n is not None
-    with_sn = tri_sn is not None
-    with_t0 = t0 is not None
-
-    kernel = functools.partial(_kernel_mxu, leaf=leaf, eps=eps,
-                               with_n=with_n, with_uv=want_uv,
-                               with_sn=with_sn, with_t0=with_t0)
-    in_specs = [pl.BlockSpec((10, rt), lambda i: (0, i),
-                             memory_space=pltpu.VMEM)]
-    args = [rayf]
-    if with_t0:
-        t0_p = jnp.pad(t0, ((0, pad),), constant_values=-BIG)
-        in_specs.append(pl.BlockSpec((1, rt), lambda i: (0, i),
-                                     memory_space=pltpu.VMEM))
-        args.append(t0_p.astype(jnp.float32)[None, :])
-    in_specs.append(pl.BlockSpec(feat.shape, lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM))
-    args.append(feat)
-    if with_n:
-        nrm = tri_n.astype(jnp.float32).T                # (3, T)
-        in_specs.append(pl.BlockSpec(nrm.shape, lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(nrm)
-    if with_sn:
-        snc = tri_sn.astype(jnp.float32).T               # (9, T)
-        in_specs.append(pl.BlockSpec(snc.shape, lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(snc)
-    in_specs.append(pl.BlockSpec(aabb_c.shape, lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM))
-    args.append(aabb_c)
-    out_specs = [
-        pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((1, R + pad), jnp.float32),
-        jax.ShapeDtypeStruct((1, R + pad), jnp.int32),
-    ]
-    if with_n or with_sn:
-        out_specs.append(
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((3, R + pad), jnp.float32))
-    if want_uv:
-        out_specs.append(
-            pl.BlockSpec((2, rt), lambda i: (0, i), memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((2, R + pad), jnp.float32))
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(*args)
-    t, idx = out[0][0, :R], out[1][0, :R]
-    # lanes whose seeded bound was never beaten carry the seed, not BIG —
-    # restore the public miss contract
-    t = jnp.where(idx >= 0, t, BIG).astype(o.dtype)
-    if with_n or with_sn or want_uv:
-        return t, idx, out[2][:, :R].T.astype(o.dtype)
-    return t, idx
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("leaf", "ray_tile", "eps", "interpret"),
-)
-def mesh_closest_shadow_mxu(o, d, tri_p1, tri_e1, tri_e2, tri_n,
-                            cluster_aabb, light_pos, leaf: int,
-                            ray_tile: int = 512, eps: float = EPSILON,
-                            interpret: bool = False, tri_sn=None):
-    """Fused closest-hit + shadow pass (see _kernel_mxu_cs). Pure-mesh
-    single-VMEM-block scenes only (the integrator gates on that). Returns
-    (t, idx, n, shadowed): the mesh_closest_hit_mxu(tri_n=...) contract
-    plus shadowed (R,) bool — light occluded from the hit's over_point.
-    tri_sn: optional (T, 9) corner-normal slab (smooth meshes) — replaces
-    tri_n, and n becomes the winner's raw corner blend."""
-    assert _blocked(tri_p1, leaf, VMEM_TRI_BUDGET) == 1
-    with_sn = tri_sn is not None
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)), constant_values=BIG)
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    n_tiles = (R + pad) // rt
-
-    feat = _tri_features(tri_p1, tri_e1, tri_e2, leaf)
-    rayf = _ray_features_t(o_p, d_p)
-    aabb_c = _aabb_cols(cluster_aabb)
-    nrm = (tri_sn if with_sn else tri_n).astype(jnp.float32).T  # (3|9, T)
-    lp = jnp.asarray(light_pos, jnp.float32).reshape(1, 3)
-
-    kernel = functools.partial(_kernel_mxu_cs, leaf=leaf, eps=eps,
-                               with_sn=with_sn)
-    t, idx, n, sh = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((10, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(feat.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(nrm.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(aabb_c.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(lp.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, R + pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, R + pad), jnp.int32),
-            jax.ShapeDtypeStruct((3, R + pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, R + pad), jnp.int32),
-        ],
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(rayf, feat, nrm, aabb_c, lp)
-    t_out, idx_out = t[0, :R], idx[0, :R]
-    t_out = jnp.where(idx_out >= 0, t_out, BIG).astype(o.dtype)
-    return (t_out, idx_out, n[:, :R].T.astype(o.dtype), sh[0, :R] != 0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_super", "super_width", "leaf", "ray_tile", "eps",
-                     "interpret", "vmem_tri_budget"),
-)
-def mesh_any_hit_mxu(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                     super_aabb, n_super: int, leaf: int,
-                     super_width: int = 8, ray_tile: int = 128,
-                     eps: float = EPSILON, interpret: bool = False,
-                     vmem_tri_budget: int = VMEM_TRI_BUDGET):
-    """Occlusion query with MXU cluster tests and the same in-kernel
-    traversal schedule as mesh_closest_hit_mxu (clusters beyond every ray's
-    max_t are never scheduled). Same contract as mesh_any_hit_pallas.
-    Oversized meshes stream in superblocks (see mesh_closest_hit_mxu)."""
-    del super_aabb, n_super, super_width
-    n_blocks = _blocked(tri_p1, leaf, vmem_tri_budget)
-    if n_blocks > 1:
-        return _any_hit_blocked(
-            o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb, n_blocks,
-            leaf, ray_tile, eps, interpret)
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)), constant_values=BIG)
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    m_p = jnp.pad(max_t, ((0, pad),), constant_values=-1.0)  # padded rays: no hit
-    n_tiles = (R + pad) // rt
-
-    feat = _tri_features(tri_p1, tri_e1, tri_e2, leaf)
-    rayf = _ray_features_t(o_p, d_p)                     # (10, R')
-    aabb_c = _aabb_cols(cluster_aabb)                    # (C, 8)
-
-    kernel = functools.partial(_anyhit_kernel_mxu, leaf=leaf, eps=eps)
-    (hit,) = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((10, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(feat.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(aabb_c.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM)],
-        out_shape=[jax.ShapeDtypeStruct((1, R + pad), jnp.int32)],
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(rayf, m_p.astype(jnp.float32)[None, :], feat, aabb_c)
-    return hit[0, :R] != 0
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_super", "super_width", "leaf", "ray_tile", "eps",
-                     "interpret"),
-)
-def mesh_any_hit_pallas(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                        super_aabb, n_super: int, leaf: int,
-                        super_width: int = 8, ray_tile: int = 256,
-                        eps: float = EPSILON, interpret: bool = False):
-    """Occlusion query: True where some triangle lies in [0, max_t) along the
-    ray. o/d: (R, 3); max_t: (R,).
-
-    DEBUG/VALIDATION BACKEND (elementwise VPU kernel, static 3-level
-    hierarchy): kept as an independent implementation for cross-checking the
-    production 'mxu' path. It has no in-kernel schedule, no payload outputs,
-    no superblock streaming, and no primitive-sharding support (the
-    integrator refuses rather than substituting another backend)."""
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)))
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    m_p = jnp.pad(max_t, ((0, pad),), constant_values=-1.0)  # padded rays: no hit
-    n_tiles = (R + pad) // rt
-
-    kernel = functools.partial(_anyhit_kernel, n_super=n_super,
-                               super_width=super_width, leaf=leaf, eps=eps)
-    (hit,) = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tri_p1.shape[0]), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tri_p1.shape[0]), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tri_p1.shape[0]), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((6, cluster_aabb.shape[0]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((6, super_aabb.shape[0]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=[pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM)],
-        out_shape=[jax.ShapeDtypeStruct((1, R + pad), jnp.int32)],
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(
-        o_p.astype(jnp.float32).T,
-        d_p.astype(jnp.float32).T,
-        m_p.astype(jnp.float32)[None, :],
-        tri_p1.astype(jnp.float32).T,
-        tri_e1.astype(jnp.float32).T,
-        tri_e2.astype(jnp.float32).T,
-        cluster_aabb.astype(jnp.float32).T,
-        super_aabb.astype(jnp.float32).T,
-    )
-    return hit[0, :R] != 0
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_super", "super_width", "leaf", "ray_tile", "eps",
-                     "interpret"),
-)
-def mesh_closest_hit_pallas(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                            super_aabb, n_super: int, leaf: int,
-                            super_width: int = 8, ray_tile: int = 256,
-                            eps: float = EPSILON, interpret: bool = False):
-    """Closest triangle hit for a ray wavefront.
-
-    o/d: (R, 3) f32. tri_*: (T, 3) f32 with T == n_clusters * leaf.
-    cluster_aabb: (C, 6). Returns (t (R,), idx (R,)); idx == -1 for miss.
-
-    DEBUG/VALIDATION BACKEND — see mesh_any_hit_pallas. The production path
-    is mesh_closest_hit_mxu (matmul-form MT + in-kernel schedule + payload
-    selection + HBM streaming); this kernel exists to cross-check it with an
-    independently-structured implementation (tests/test_pallas_mesh.py).
-    """
-    R = o.shape[0]
-    rt = min(ray_tile, max(R, 128))
-    pad = (-R) % rt
-    o_p = jnp.pad(o, ((0, pad), (0, 0)))
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-    n_tiles = (R + pad) // rt
-
-    o_t = o_p.astype(jnp.float32).T          # (3, R')
-    d_t = d_p.astype(jnp.float32).T
-    p1_t = tri_p1.astype(jnp.float32).T      # (3, T)
-    e1_t = tri_e1.astype(jnp.float32).T
-    e2_t = tri_e2.astype(jnp.float32).T
-    aabb_t = cluster_aabb.astype(jnp.float32).T  # (6, C)
-    sup_t = super_aabb.astype(jnp.float32).T     # (6, S)
-
-    kernel = functools.partial(_kernel, n_super=n_super,
-                               super_width=super_width, leaf=leaf, eps=eps)
-    t, idx = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(p1_t.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(e1_t.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(e2_t.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-            # AABBs are read as scalars with a dynamic cluster index -> SMEM
-            pl.BlockSpec(aabb_t.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(sup_t.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rt), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, R + pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, R + pad), jnp.int32),
-        ],
-        interpret=interpret,
-        compiler_params=_VMEM_LIMIT,
-    )(o_t, d_t, p1_t, e1_t, e2_t, aabb_t, sup_t)
-    return t[0, :R].astype(o.dtype), idx[0, :R]
+    jax.jit, static_argnames=("leaf", "eps", "block_rays", "interpret"))
+def any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb, *, leaf: int,
+            eps: float = EPSILON, block_rays: int = BLOCK_RAYS,
+            interpret: bool = False):
+    """Occlusion query: True where some triangle lies at t in [0, max_t)
+    along the ray. Rays with max_t <= 0 (dead lanes) report False and never
+    hold a program's walk open."""
+    r = o.shape[0]
+    rays = _ray_table(o, d, max_t, block_rays)
+    (hit,) = _call(_any_kernel, rays, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                   1, (jnp.int32,), leaf=leaf, eps=eps, block_rays=block_rays,
+                   interpret=interpret)
+    return hit[:r] != 0

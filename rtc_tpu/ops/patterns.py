@@ -2,7 +2,7 @@
 
 Pattern kinds are integer codes so a heterogeneous object table can be
 evaluated branchlessly per-ray: every kind's color is computed and selected by
-mask (5 cheap elementwise formulas — TPU prefers this to gather/switch).
+mask (5 cheap elementwise formulas, one fused pass, no gather or switch).
 
 The two-level texture-space pipeline (shape inverse, then pattern inverse —
 reference: src/pattern.rs:98-103) is precomposed at scene-compile time into a

@@ -1,7 +1,7 @@
 """Vectorized 3-vector ops — the renderer's working representation.
 
 The reference models everything as a homogeneous 4-tuple with a w flag
-(reference: src/tuple.rs:6-11). On TPU, points and vectors live as separate
+(reference: src/tuple.rs:6-11). Here points and vectors live as separate
 (..., 3) SoA arrays; the w bookkeeping disappears because the *functions* know
 whether they are transforming a point (translation applies) or a direction
 (it does not). All ops broadcast over leading batch dims and are differentiable
@@ -47,12 +47,9 @@ def reflect(v, n):
 def unpack3(v):
     """(..., 3) -> three (...,) component arrays.
 
-    TPU layout note: a (R, 3) f32 array tiles as (8, 128) with only 3 of
-    128 lanes live, so every elementwise op on it runs at ~2% VPU
-    occupancy. 1-D (R,) arrays tile fully. The shading stage therefore
-    unpacks once at its boundary and does ALL of its math on components
-    (measured ~25x on a representative normalize/dot/reflect chain at
-    R = 1.8M on v5 lite)."""
+    The shading stage unpacks once at its boundary and does all of its
+    math on (R,) components: every op is then a plain elementwise pass over
+    contiguous vectors, with no strided last axis of length 3."""
     return v[..., 0], v[..., 1], v[..., 2]
 
 

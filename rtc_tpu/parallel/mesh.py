@@ -5,7 +5,7 @@ The scaling axes of a ray tracer (SURVEY.md §2):
               data-parallel axis; always sharded.
   * 'prims' — the primitive/triangle table: the tensor-parallel axis for
               scenes too large to replicate; per-device partial closest-hits
-              combine with a min-reduction over ICI.
+              combine with a min-reduction across devices.
 
 The reference has no parallelism at all (single-threaded pixel loop,
 src/camera.rs:70-76); this module is new capability.

@@ -1,10 +1,9 @@
-"""Multi-host rendering (SPMD across a pod slice).
+"""Multi-host rendering (SPMD across several hosts).
 
 The multi-controller pattern: every host runs the same program,
-`jax.distributed.initialize()` wires the slice together, rays shard across
-the GLOBAL ('rays', 'prims') mesh (ICI within a host's chips, DCN across
-hosts), and each host materializes only its addressable shard of the image.
-Host 0 assembles the full canvas for output.
+`jax.distributed.initialize()` wires the hosts together, rays shard across
+the GLOBAL ('rays', 'prims') mesh (the devices of every host), and each
+host materializes only its addressable shard of the image. Host 0 assembles the full canvas for output.
 
 Tested end-to-end by tests/test_multihost.py: two spawned CPU processes
 (localhost coordinator) render a scene through this module and process 0's
@@ -67,7 +66,7 @@ def train_step_multihost(scene: Scene, camera: Camera,
                          cfg: RenderConfig = DEFAULT_CONFIG, lr: float = 1e-2):
     """One data-parallel differentiable render step across ALL hosts: each
     device differentiates its local MSE loss, gradients psum-reduce over the
-    global 'rays' axis (ICI within a host, DCN across hosts). Returns
+    global 'rays' axis (within and across hosts). Returns
     (loss, grads) replicated on every process."""
     import dataclasses
 
@@ -98,8 +97,8 @@ def train_step_multihost(scene: Scene, camera: Camera,
 
     if jax.process_count() > 1:
         pspecs = scene_pspecs(scene, False)
-        # tree_map per field: composite fields (Scene.tlas) and absent ones
-        # (None) globalize leaf-by-leaf under the field's prefix spec
+        # tree_map per field: absent fields (None) globalize leaf-by-leaf
+        # under the field's prefix spec
         scene = dataclasses.replace(scene, **{
             f.name: jax.tree_util.tree_map(
                 lambda x, _s=getattr(pspecs, f.name): _to_global(mesh, _s, x),

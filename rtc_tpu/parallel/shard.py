@@ -4,7 +4,7 @@ Two axes (see parallel.mesh):
   * rays sharded over 'rays' (data parallel — always);
   * the triangle table optionally sharded over 'prims' (tensor parallel for
     large scenes), with per-device partial closest-hits combined by a
-    min-by-t reduction over ICI (integrator._min_by_t_over_axis).
+    min-by-t reduction across devices (integrator._min_by_t_over_axis).
 
 Scene materials/patterns/analytic prims are small and replicated; only the
 triangle slabs shard. XLA inserts the collectives from the shard_map specs.
@@ -21,6 +21,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..render import integrator
 from ..render.camera import Camera, camera_rays
+from ..render.renderer import tile_rays
 from ..scene.compile import Scene
 from ..utils.config import DEFAULT_CONFIG, RenderConfig
 
@@ -31,9 +32,9 @@ _TRI_FIELDS = ("tri_p1", "tri_e1", "tri_e2", "tri_n", "tri_obj", "tri_cid",
 def scene_pspecs(scene: Scene, shard_prims: bool) -> Scene:
     """A Scene-shaped pytree of PartitionSpecs. Under primitive sharding the
     triangle slabs AND the cluster-AABB table shard together (clusters are
-    contiguous Morton-ordered chunks of the triangle table, so a contiguous
+    contiguous k-d ordered chunks of the triangle table, so a contiguous
     tri shard owns a contiguous cluster range — each device keeps a valid
-    local acceleration structure and the Pallas kernels run per shard)."""
+    local acceleration structure and the traversal kernels run per shard)."""
     specs = {}
     n_c = scene.static.n_clusters
     for f in dataclasses.fields(Scene):
@@ -44,8 +45,7 @@ def scene_pspecs(scene: Scene, shard_prims: bool) -> Scene:
         if shard_prims and hasattr(arr, "shape") and arr.shape[0]:
             if f.name in _TRI_FIELDS and arr.shape[0] == scene.static.n_tris:
                 shard = True
-            if f.name in ("cluster_aabb", "super_aabb") and arr.shape[0] in (
-                    n_c, scene.static.n_super):
+            if f.name == "cluster_aabb" and arr.shape[0] == n_c:
                 shard = True
         specs[f.name] = (
             P("prims", *([None] * (arr.ndim - 1))) if shard else P())
@@ -59,22 +59,17 @@ def pad_tris(scene: Scene, multiple: int) -> Scene:
 
     When the scene carries a cluster acceleration structure, padding happens
     at CLUSTER granularity (empty boxes + degenerate leaves) so each shard
-    keeps T_local == C_local * leaf and the Pallas kernels stay usable."""
+    keeps T_local == C_local * leaf and the traversal kernels stay usable."""
     n = scene.static.n_tris
     leaf = scene.static.cluster_size
     if leaf and scene.static.n_clusters:
         n_c = scene.static.n_clusters
         cpad = (-n_c) % multiple
-        spad = (-(scene.static.n_super or 0)) % multiple
-        if cpad == 0 and n_c and spad == 0:
+        if cpad == 0:
             return scene
         empty = jnp.zeros((cpad, 6), scene.cluster_aabb.dtype)
         empty = empty.at[:, :3].set(1.0).at[:, 3:].set(-1.0)
         repl = {"cluster_aabb": jnp.concatenate([scene.cluster_aabb, empty])}
-        if scene.super_aabb.shape[0]:
-            sempty = jnp.zeros((spad, 6), scene.super_aabb.dtype)
-            sempty = sempty.at[:, :3].set(1.0).at[:, 3:].set(-1.0)
-            repl["super_aabb"] = jnp.concatenate([scene.super_aabb, sempty])
         for name in _TRI_FIELDS:
             arr = getattr(scene, name)
             if arr.shape[0] != n:
@@ -84,10 +79,7 @@ def pad_tris(scene: Scene, multiple: int) -> Scene:
             repl[name] = jnp.pad(arr, widths,
                                  constant_values=-1 if name == "tri_cid" else 0)
         static = scene.static._replace(
-            n_tris=n + cpad * leaf,
-            n_clusters=n_c + cpad,
-            n_super=(scene.static.n_super or 0) + spad,
-        )
+            n_tris=n + cpad * leaf, n_clusters=n_c + cpad)
         return dataclasses.replace(scene, **repl, static=static)
     if n % multiple == 0 and n > 0:
         return scene
@@ -107,7 +99,7 @@ def pad_tris(scene: Scene, multiple: int) -> Scene:
 def _tiled_color(scene: Scene, o, d, cfg: RenderConfig):
     """Per-device tiled wavefront loop (same shape as renderer._render_rays)."""
     n_rays = o.shape[0]
-    tile = min(cfg.ray_tile, n_rays)
+    tile = tile_rays(scene, cfg, n_rays)
     n_tiles = -(-n_rays // tile)
     pad = n_tiles * tile - n_rays
     o = jnp.pad(o, ((0, pad), (0, 0)))
@@ -151,7 +143,7 @@ def _balanced_morton_perm(vsize: int, hsize: int, n_shards: int, tile: int):
     """(perm, inv) composing two static reorderings:
 
     1. Morton order — each `tile`-ray block is a compact screen region, so
-       the Pallas traversal schedule culls sharply (render/order.py);
+       the traversal kernel's box tests cull sharply (render/order.py);
     2. round-robin tile dealing — tile k goes to device k % D, so every
        device receives a spatially-spread MIX of screen regions. A contiguous
        Morton split would concentrate the geometry-heavy regions on one or
@@ -219,7 +211,7 @@ def sharded_colors(scene: Scene, camera: Camera,
     morton = cfg.ray_order == "morton"
     inv = None
     if morton:
-        tile = min(cfg.ray_tile, max(128, n_rays // n_ray_shards))
+        tile = tile_rays(scene, cfg, max(128, n_rays // n_ray_shards))
         perm, inv = _balanced_morton_perm(
             camera.vsize, camera.hsize, n_ray_shards, tile)
         pad = len(perm) - n_rays
@@ -237,8 +229,8 @@ def sharded_colors(scene: Scene, camera: Camera,
         # multi-controller: every process computed identical full inputs;
         # lift them onto the global mesh so jit can dispatch SPMD
         pspecs = scene_pspecs(scene, shard_p)
-        # tree_map per field: composite fields (Scene.tlas) and absent ones
-        # (None) globalize leaf-by-leaf under the field's prefix spec
+        # tree_map per field: absent fields (None) globalize leaf-by-leaf
+        # under the field's prefix spec
         scene = dataclasses.replace(scene, **{
             f.name: jax.tree_util.tree_map(
                 lambda x, _s=getattr(pspecs, f.name): _to_global(mesh, _s, x),
@@ -256,7 +248,7 @@ def render_sharded(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CON
                    mesh: Mesh | None = None, shard_prims: bool = False):
     """Render with rays sharded over mesh axis 'rays' (and optionally the
     triangle table over 'prims'). Returns an (V, H, 3) image. Single-process
-    assembly; for pod slices use multihost.render_multihost.
+    assembly; for several hosts use multihost.render_multihost.
 
     Ray order: Morton tiles dealt round-robin across the 'rays' axis for
     load balance (see _balanced_morton_perm); pure permutation, applied

@@ -9,8 +9,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# full f32 precision: XLA may otherwise contract f32 in TF32 on the GPU
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass
@@ -60,8 +64,9 @@ def camera_rays_for_pixels(inv, px, py, half_width, half_height, pixel_size,
     pix = jnp.stack(
         [wx, wy, jnp.full_like(wx, -1.0), jnp.ones_like(wx)], axis=-1
     )  # canvas plane z = -1 (src/camera.rs:60)
-    pixel_world = jnp.einsum("ij,rj->ri", inv, pix)[..., :3]
-    origin = (inv @ jnp.array([0.0, 0.0, 0.0, 1.0], dtype))[:3]
+    pixel_world = jnp.einsum("ij,rj->ri", inv, pix,
+                             precision=_HIGHEST)[..., :3]
+    origin = inv[:3, 3]  # inv @ (0, 0, 0, 1)
     direction = pixel_world - origin
     norm = jnp.sqrt(jnp.sum(direction * direction, axis=-1, keepdims=True))
     direction = direction / jnp.maximum(norm, 1e-30)

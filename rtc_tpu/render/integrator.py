@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..ops import intersect, lighting, normals, patterns
@@ -31,14 +32,12 @@ from ..utils.config import RenderConfig
 from ..utils.constants import BIG
 from ..scene.compile import Scene
 
+# f32 contractions stay full precision: XLA may otherwise run them as TF32
+# on the GPU's tensor cores (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 # kind codes (scene.shapes.KIND_CODES)
 SPHERE, PLANE, CUBE, CYLINDER, CONE = 0, 1, 2, 3, 4
-
-# TLAS kernels always tile rays at 128 (vs the flat kernel's adaptive
-# min(512, max(128, R))): instance visits are the unit of kernel work, and a
-# tile visits every instance ANY of its rays overlaps — tighter fixed tiles
-# shed whole instance visits, measured 15% on the 90-cow herd.
-TLAS_RAY_TILE = 128
 
 
 class HitInfo(NamedTuple):
@@ -56,17 +55,18 @@ class HitInfo(NamedTuple):
 def _local_rays(inv, o, d):
     """Transform a ray wavefront into each prim's object space.
     inv: (N, 3, 4); o/d: (R, 3) -> (R, N, 3)."""
-    o_l = jnp.einsum("nij,rj->rni", inv[:, :, :3], o) + inv[:, :, 3]
-    d_l = jnp.einsum("nij,rj->rni", inv[:, :, :3], d)
+    lin = inv[:, :, :3]
+    o_l = jnp.einsum("nij,rj->rni", lin, o, precision=_HIGHEST) + inv[:, :, 3]
+    d_l = jnp.einsum("nij,rj->rni", lin, d, precision=_HIGHEST)
     return o_l, d_l
 
 
 def prim_candidates(scene: Scene, o, d, eps, ids=None):
     """Candidate hit slots for analytic prims: (R, N, 4) t + valid.
 
-    Every kind's kernel runs on every prim, masked by kind — N is small and
-    TPU prefers straight-line masked math to gather/switch (the reference's
-    per-kind match is at src/shape.rs:257-460).
+    Every kind's kernel runs on every prim, masked by kind — N is small, and
+    straight-line masked math keeps the sweep one fused elementwise pass
+    (the reference's per-kind match is at src/shape.rs:257-460).
 
     ids: optional static tuple restricting to a subset of prims (used by the
     refraction-index pass).
@@ -118,530 +118,74 @@ def tri_candidates(scene: Scene, o, d, eps, with_uv: bool = False):
     return t, valid
 
 
-_KERNEL_IMPLS = ("pallas", "pallas_interpret", "mxu", "mxu_interpret")
-
-
-import functools
-
-import jax as _jax
-import numpy as _np
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest(spec, o, d, p1, e1, e2, aabb, sup):
-    """Forward-only Pallas search with exact derivatives attached.
-
-    spec: (impl, n_super, leaf, ray_tile, eps) — hashable/static.
-    Primal: the kernel's (t, idx) directly (no recompute). Tangent: a single
-    gathered Möller-Trumbore evaluation at the winning triangle (closed-form
-    t — implicit-function derivative), linearized by jax.jvp. Under plain
-    rendering the tangent rule never runs, so the refinement gathers cost
-    nothing; under autodiff gradients are exact w.r.t. rays AND triangle
-    vertices while the O(R x T) search stays out of the graph.
-    """
-    impl, n_super, leaf, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import (
-        mesh_closest_hit_mxu, mesh_closest_hit_pallas)
-
-    sg = _jax.lax.stop_gradient
-    fn = mesh_closest_hit_mxu if impl.startswith("mxu") else mesh_closest_hit_pallas
-    t, idx = fn(sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(aabb), sg(sup),
-                n_super=n_super, leaf=leaf, ray_tile=ray_tile, eps=eps,
-                interpret=impl.endswith("_interpret"))
-    return t, idx
-
-
-@_kernel_closest.defjvp
-def _kernel_closest_jvp(spec, primals, tangents):
-    o, d, p1, e1, e2, aabb, sup = primals
-    do, dd, dp1, de1, de2, _, _ = tangents
-    t, idx = _kernel_closest(spec, *primals)
-    eps = spec[4]
-    hit_ok = idx >= 0
-    idx_c = jnp.where(hit_ok, idx, 0)
-
-    def refined_t(o, d, p1, e1, e2):
-        t_ref, _, _, _ = intersect.triangle(
-            o, d, p1[idx_c], e1[idx_c], e2[idx_c], eps)
-        return t_ref
-
-    _, dt = _jax.jvp(refined_t, (o, d, p1, e1, e2), (do, dd, dp1, de1, de2))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    didx = _np.zeros(idx.shape, dtype=_jax.dtypes.float0)
-    return (t, idx), (dt, didx)
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_n(spec, o, d, p1, e1, e2, nrm, aabb, sup):
-    """_kernel_closest variant that also selects the winner's flat normal
-    IN-KERNEL (mxu only; flat meshes — smooth meshes blend corner normals at
-    the winner outside the kernel). The n output's autodiff semantics match
-    the gather nrm[idx] it replaces: tangent dn = dnrm[idx] masked on miss."""
-    impl, n_super, leaf, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    sg = _jax.lax.stop_gradient
-    t, idx, n = mesh_closest_hit_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(aabb), sg(sup),
-        n_super=n_super, leaf=leaf, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"), tri_n=sg(nrm))
-    return t, idx, n
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_uv(spec, o, d, p1, e1, e2, aabb, sup):
-    """_kernel_closest variant that also selects the winner's barycentric
-    (u, v) IN-KERNEL (mxu only; smooth meshes blend corner normals with
-    these weights OUTSIDE the kernel). Autodiff semantics match the gathered
-    Möller-Trumbore recompute it replaces: tangent d(u,v) from a single
-    refined evaluation at the winning triangle."""
-    impl, n_super, leaf, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    sg = _jax.lax.stop_gradient
-    t, idx, uv = mesh_closest_hit_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(aabb), sg(sup),
-        n_super=n_super, leaf=leaf, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"), want_uv=True)
-    return t, idx, uv
-
-
-@_kernel_closest_uv.defjvp
-def _kernel_closest_uv_jvp(spec, primals, tangents):
-    o, d, p1, e1, e2, aabb, sup = primals
-    do, dd, dp1, de1, de2, _, _ = tangents
-    t, idx, uv = _kernel_closest_uv(spec, *primals)
-    eps = spec[4]
-    hit_ok = idx >= 0
-    idx_c = jnp.where(hit_ok, idx, 0)
-
-    def refined(o, d, p1, e1, e2):
-        t_ref, _, u_ref, v_ref = intersect.triangle(
-            o, d, p1[idx_c], e1[idx_c], e2[idx_c], eps)
-        return t_ref, jnp.stack([u_ref, v_ref], axis=-1)
-
-    _, (dt, duv) = _jax.jvp(refined, (o, d, p1, e1, e2),
-                            (do, dd, dp1, de1, de2))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    duv = jnp.where(hit_ok[:, None], duv, 0.0)
-    didx = _np.zeros(idx.shape, dtype=_jax.dtypes.float0)
-    return (t, idx, uv), (dt, didx, duv)
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_sn(spec, o, d, p1, e1, e2, snc, aabb, sup):
-    """_kernel_closest variant for SMOOTH meshes: the winner's three corner
-    normals (snc: (T, 9) = [sn1|sn2|sn3]) are blended with its barycentric
-    (u, v) IN-KERNEL; n is the unnormalized blend (zeros on miss). Autodiff
-    semantics match the gathered recompute it replaces: tangents from a
-    single refined Möller-Trumbore at the winning triangle feeding the same
-    blend."""
-    impl, n_super, leaf, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    sg = _jax.lax.stop_gradient
-    t, idx, n = mesh_closest_hit_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(aabb), sg(sup),
-        n_super=n_super, leaf=leaf, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"), tri_sn=sg(snc))
-    return t, idx, n
-
-
-@_kernel_closest_sn.defjvp
-def _kernel_closest_sn_jvp(spec, primals, tangents):
-    o, d, p1, e1, e2, snc, aabb, sup = primals
-    do, dd, dp1, de1, de2, dsnc, _, _ = tangents
-    t, idx, n = _kernel_closest_sn(spec, *primals)
-    eps = spec[4]
-    hit_ok = idx >= 0
-    idx_c = jnp.where(hit_ok, idx, 0)
-
-    def refined(o, d, p1, e1, e2, snc):
-        t_ref, _, u, v = intersect.triangle(
-            o, d, p1[idx_c], e1[idx_c], e2[idx_c], eps)
-        g = snc[idx_c]                                   # (R, 9)
-        w0 = (1.0 - u - v)[:, None]
-        n_ref = w0 * g[:, 0:3] + u[:, None] * g[:, 3:6] + v[:, None] * g[:, 6:9]
-        return t_ref, n_ref
-
-    _, (dt, dn) = _jax.jvp(refined, (o, d, p1, e1, e2, snc),
-                           (do, dd, dp1, de1, de2, dsnc))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    dn = jnp.where(hit_ok[:, None], dn, 0.0)
-    didx = _np.zeros(idx.shape, dtype=_jax.dtypes.float0)
-    return (t, idx, n), (dt, didx, dn)
-
-
-@_kernel_closest_n.defjvp
-def _kernel_closest_n_jvp(spec, primals, tangents):
-    o, d, p1, e1, e2, nrm, aabb, sup = primals
-    do, dd, dp1, de1, de2, dnrm, _, _ = tangents
-    t, idx, n = _kernel_closest_n(spec, *primals)
-    eps = spec[4]
-    hit_ok = idx >= 0
-    idx_c = jnp.where(hit_ok, idx, 0)
-
-    def refined(o, d, p1, e1, e2, nrm):
-        t_ref, _, _, _ = intersect.triangle(
-            o, d, p1[idx_c], e1[idx_c], e2[idx_c], eps)
-        return t_ref, nrm[idx_c]
-
-    _, (dt, dn) = _jax.jvp(refined, (o, d, p1, e1, e2, nrm),
-                           (do, dd, dp1, de1, de2, dnrm))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    dn = jnp.where(hit_ok[:, None], dn, 0.0)
-    didx = _np.zeros(idx.shape, dtype=_jax.dtypes.float0)
-    return (t, idx, n), (dt, didx, dn)
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_shadow(spec, o, d, p1, e1, e2, nrm, aabb, lp):
-    """FUSED closest-hit + shadow pass for pure-mesh scenes (see
-    mesh_intersect._kernel_mxu_cs): one launch per bounce node computes the
-    closest hit AND whether the mesh occludes the light from its over_point,
-    deriving the shadow ray in-registers. Returns (t, idx, n, shadowed);
-    tangent rule identical to _kernel_closest_n (shadowed is boolean — the
-    reference's shadow gating is non-differentiable, src/material.rs:57)."""
-    impl, _, leaf, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_shadow_mxu
-
-    sg = _jax.lax.stop_gradient
-    return mesh_closest_shadow_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(nrm), sg(aabb), sg(lp),
-        leaf=leaf, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"))
-
-
-@_kernel_closest_shadow.defjvp
-def _kernel_closest_shadow_jvp(spec, primals, tangents):
-    o, d, p1, e1, e2, nrm, aabb, lp = primals
-    do, dd, dp1, de1, de2, dnrm, _, _ = tangents
-    t, idx, n, sh = _kernel_closest_shadow(spec, *primals)
-    eps = spec[4]
-    hit_ok = idx >= 0
-    idx_c = jnp.where(hit_ok, idx, 0)
-
-    def refined(o, d, p1, e1, e2, nrm):
-        t_ref, _, _, _ = intersect.triangle(
-            o, d, p1[idx_c], e1[idx_c], e2[idx_c], eps)
-        return t_ref, nrm[idx_c]
-
-    _, (dt, dn) = _jax.jvp(refined, (o, d, p1, e1, e2, nrm),
-                           (do, dd, dp1, de1, de2, dnrm))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    dn = jnp.where(hit_ok[:, None], dn, 0.0)
-    z0 = lambda x: _np.zeros(x.shape, dtype=_jax.dtypes.float0)
-    return (t, idx, n, sh), (dt, z0(idx), dn, z0(sh))
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_shadow_sn(spec, o, d, p1, e1, e2, snc, aabb, lp):
-    """_kernel_closest_shadow for SMOOTH meshes: phase 1 blends the
-    winner's corner normals in-kernel (snc: (T, 9)); n is the raw blend
-    (the caller normalizes, mirroring closest_hit's sn path). Tangent rule
-    identical to _kernel_closest_sn."""
-    impl, _, leaf, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_shadow_mxu
-
-    sg = _jax.lax.stop_gradient
-    return mesh_closest_shadow_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(p1[:, :3] * 0.0),
-        sg(aabb), sg(lp), leaf=leaf, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"), tri_sn=sg(snc))
-
-
-@_kernel_closest_shadow_sn.defjvp
-def _kernel_closest_shadow_sn_jvp(spec, primals, tangents):
-    o, d, p1, e1, e2, snc, aabb, lp = primals
-    do, dd, dp1, de1, de2, dsnc, _, _ = tangents
-    t, idx, n, sh = _kernel_closest_shadow_sn(spec, *primals)
-    eps = spec[4]
-    hit_ok = idx >= 0
-    idx_c = jnp.where(hit_ok, idx, 0)
-
-    def refined(o, d, p1, e1, e2, snc):
-        t_ref, _, u, v = intersect.triangle(
-            o, d, p1[idx_c], e1[idx_c], e2[idx_c], eps)
-        g = snc[idx_c]                                   # (R, 9)
-        w0 = (1.0 - u - v)[:, None]
-        n_ref = w0 * g[:, 0:3] + u[:, None] * g[:, 3:6] + v[:, None] * g[:, 6:9]
-        return t_ref, n_ref
-
-    _, (dt, dn) = _jax.jvp(refined, (o, d, p1, e1, e2, snc),
-                           (do, dd, dp1, de1, de2, dsnc))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    dn = jnp.where(hit_ok[:, None], dn, 0.0)
-    z0 = lambda x: _np.zeros(x.shape, dtype=_jax.dtypes.float0)
-    return (t, idx, n, sh), (dt, z0(idx), dn, z0(sh))
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_tlas(spec, o, d, p1, e1, e2, nrm, caabb, inst_ab,
-                         inst_rf, inst_aabb, inst_mesh, inst_obj):
-    """Forward-only INSTANCED (TLAS) search with exact derivatives.
-
-    spec: (impl, leaf, cm, ray_tile, eps). Returns (t, enc, obj, n): enc is
-    the instance-local winner id (instance * cm * leaf + mesh-local row, -1
-    miss), obj the winning instance's object id and n its unnormalized world
-    normal — both selected in-kernel. The tangent rule recomputes the
-    winner's Möller-Trumbore in the instance's OBJECT space (rays pushed
-    through the world->object affine), so gradients are exact w.r.t. rays,
-    unique-mesh geometry AND instance transforms while the search stays out
-    of the graph."""
-    impl, leaf, cm, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_hit_tlas_mxu
-
-    sg = _jax.lax.stop_gradient
-    t, enc, obj, n = mesh_closest_hit_tlas_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(caabb), sg(inst_ab),
-        sg(inst_rf), sg(inst_aabb), sg(inst_mesh), sg(inst_obj), leaf=leaf,
-        cm=cm, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"), tri_n=sg(nrm))
-    return t, enc, obj, n
-
-
-@_kernel_closest_tlas.defjvp
-def _kernel_closest_tlas_jvp(spec, primals, tangents):
-    (o, d, p1, e1, e2, nrm, caabb, inst_ab, inst_rf, inst_aabb, inst_mesh,
-     inst_obj) = primals
-    do, dd, dp1, de1, de2, dnrm, _, dab, _, _, _, _ = tangents
-    t, enc, obj, n = _kernel_closest_tlas(spec, *primals)
-    _, leaf, cm, _, eps = spec
-    tm = cm * leaf
-    hit_ok = enc >= 0
-    enc_c = jnp.where(hit_ok, enc, 0)
-    i_inst = enc_c // tm
-    row = inst_mesh[i_inst] * tm + (enc_c % tm)
-
-    def refined(o, d, p1, e1, e2, nrm, inst_ab):
-        A = inst_ab[i_inst, :9].reshape(-1, 3, 3)
-        b = inst_ab[i_inst, 9:]
-        o2 = jnp.einsum("rij,rj->ri", A, o) + b
-        d2 = jnp.einsum("rij,rj->ri", A, d)
-        t_ref, _, _, _ = intersect.triangle(
-            o2, d2, p1[row], e1[row], e2[row], eps)
-        n_ref = jnp.einsum("rk,rka->ra", nrm[row], A)
-        return t_ref, n_ref
-
-    _, (dt, dn) = _jax.jvp(refined, (o, d, p1, e1, e2, nrm, inst_ab),
-                           (do, dd, dp1, de1, de2, dnrm, dab))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    dn = jnp.where(hit_ok[:, None], dn, 0.0)
-    z0 = lambda x: _np.zeros(x.shape, dtype=_jax.dtypes.float0)
-    return (t, enc, obj, n), (dt, z0(enc), z0(obj), dn)
-
-
-@functools.partial(_jax.custom_jvp, nondiff_argnums=(0,))
-def _kernel_closest_tlas_sn(spec, o, d, p1, e1, e2, snc, caabb, inst_ab,
-                            inst_rf, inst_aabb, inst_mesh, inst_obj):
-    """_kernel_closest_tlas for SMOOTH instanced meshes: the winner's three
-    OBJECT-space corner normals (snc: (Tu, 9) = [sn1|sn2|sn3]) are blended
-    with its barycentric (u, v) IN-KERNEL and pushed through the instance
-    inverse-transpose — the smooth-triangle capability the reference stubs
-    (src/intersection.rs:381-386), composed with instancing. The tangent
-    rule recomputes the winner's Möller-Trumbore in instance object space
-    feeding the same blend, so gradients flow to rays, unique geometry,
-    corner normals AND instance transforms."""
-    impl, leaf, cm, ray_tile, eps = spec
-    from ..ops.pallas.mesh_intersect import mesh_closest_hit_tlas_mxu
-
-    sg = _jax.lax.stop_gradient
-    t, enc, obj, n = mesh_closest_hit_tlas_mxu(
-        sg(o), sg(d), sg(p1), sg(e1), sg(e2), sg(caabb), sg(inst_ab),
-        sg(inst_rf), sg(inst_aabb), sg(inst_mesh), sg(inst_obj), leaf=leaf,
-        cm=cm, ray_tile=ray_tile, eps=eps,
-        interpret=impl.endswith("_interpret"), tri_sn=sg(snc))
-    return t, enc, obj, n
-
-
-@_kernel_closest_tlas_sn.defjvp
-def _kernel_closest_tlas_sn_jvp(spec, primals, tangents):
-    (o, d, p1, e1, e2, snc, caabb, inst_ab, inst_rf, inst_aabb, inst_mesh,
-     inst_obj) = primals
-    do, dd, dp1, de1, de2, dsnc, _, dab, _, _, _, _ = tangents
-    t, enc, obj, n = _kernel_closest_tlas_sn(spec, *primals)
-    _, leaf, cm, _, eps = spec
-    tm = cm * leaf
-    hit_ok = enc >= 0
-    enc_c = jnp.where(hit_ok, enc, 0)
-    i_inst = enc_c // tm
-    row = inst_mesh[i_inst] * tm + (enc_c % tm)
-
-    def refined(o, d, p1, e1, e2, snc, inst_ab):
-        A = inst_ab[i_inst, :9].reshape(-1, 3, 3)
-        b = inst_ab[i_inst, 9:]
-        o2 = jnp.einsum("rij,rj->ri", A, o) + b
-        d2 = jnp.einsum("rij,rj->ri", A, d)
-        t_ref, _, u, v = intersect.triangle(
-            o2, d2, p1[row], e1[row], e2[row], eps)
-        g = snc[row]                                     # (R, 9)
-        w0 = (1.0 - u - v)[:, None]
-        n_obj = (w0 * g[:, 0:3] + u[:, None] * g[:, 3:6]
-                 + v[:, None] * g[:, 6:9])
-        n_ref = jnp.einsum("rk,rka->ra", n_obj, A)
-        return t_ref, n_ref
-
-    _, (dt, dn) = _jax.jvp(refined, (o, d, p1, e1, e2, snc, inst_ab),
-                           (do, dd, dp1, de1, de2, dsnc, dab))
-    dt = jnp.where(hit_ok, dt, 0.0)
-    dn = jnp.where(hit_ok[:, None], dn, 0.0)
-    z0 = lambda x: _np.zeros(x.shape, dtype=_jax.dtypes.float0)
-    return (t, enc, obj, n), (dt, z0(enc), z0(obj), dn)
-
-
-def _tlas_closest(scene: Scene, o, d, cfg: RenderConfig, impl: str):
-    """Dispatch the TLAS closest-hit kernel: (t, enc, obj, n_unnormalized).
-    t is already BIG on miss; enc == -1, obj == 0, n == 0 there.
-    Rays tile at TLAS_RAY_TILE (see the constant's comment). Smooth
-    instanced scenes (static.tlas_sn) route to the corner-normal-blending
-    variant."""
-    st = scene.static
-    tl = scene.tlas
-    spec = (impl, st.cluster_size, st.tlas_cm, TLAS_RAY_TILE, cfg.epsilon)
-    if st.tlas_sn:
-        return _kernel_closest_tlas_sn(
-            spec, o, d, tl.p1, tl.e1, tl.e2, tl.sn, tl.caabb, tl.inst_ab,
-            tl.inst_rf, tl.inst_aabb, tl.inst_mesh, tl.inst_obj)
-    return _kernel_closest_tlas(
-        spec, o, d, tl.p1, tl.e1, tl.e2, tl.n, tl.caabb, tl.inst_ab,
-        tl.inst_rf, tl.inst_aabb, tl.inst_mesh, tl.inst_obj)
-
-
-def _use_tlas(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
-    """The instanced path serves multi-instance scenes on the mxu backend.
-    Under primitive sharding (cfg.prim_axis set) the integrator falls back
-    to the flat world-table path: the triangle shards each carry a valid
-    local cluster structure and partial hits combine min-by-t over the
-    'prims' axis, while the TLAS tables stay replicated and UNUSED. Sharding
-    the instance tables themselves is not implemented (a prim-sharded
-    instanced scene pays the flat-table cost)."""
-    return bool(scene.static.tlas_n_inst) and impl.startswith("mxu") \
-        and cfg.prim_axis is None
-
-
-def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
-    """Fused closest+shadow eligibility: pure-mesh scene (flat or smooth)
-    whose feature slab fits one VMEM block, kernel backend, shadows on, no
-    primitive sharding, no TLAS. (Analytic prims keep the split sweeps:
-    their hit merge happens outside the kernel.)"""
-    from ..ops.pallas.mesh_intersect import VMEM_TRI_BUDGET, _blocked
-
-    st = scene.static
-    budget = (VMEM_TRI_BUDGET if not st.any_smooth
-              else (VMEM_TRI_BUDGET * 43) // 49)  # 9-row corner slab
-    return (cfg.fused_shadow and cfg.shadows and impl.startswith("mxu")
-            and cfg.prim_axis is None and st.n_prims == 0
-            and st.n_tris > 0
-            and not _use_tlas(scene, cfg, impl)
-            and _blocked(scene.tri_p1, st.cluster_size, budget) == 1)
+MESH_IMPLS = ("auto", "bruteforce", "triton")
 
 
 def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, dtype) -> str:
-    impl = cfg.mesh_impl
-    if impl == "auto":
-        import jax
+    """The triangle search a sweep uses.
 
-        ok = (
-            scene.static.n_clusters > 0
-            and dtype == jnp.float32
-            and jax.default_backend() != "cpu"
-        )
-        impl = "mxu" if ok else "bruteforce"
-    if impl in _KERNEL_IMPLS and not scene.static.n_clusters:
+    'auto' resolves to the dense 'bruteforce' sweep on the CPU and in
+    float64 (the conformance dtype), and on the GPU to the 'triton'
+    cluster-traversal kernel, which measured faster end to end there
+    (PERF.md). Any other platform has no measured choice and raises.
+    'triton' runs the compiled GPU kernel unless cfg.interpret asks for
+    the Pallas interpreter."""
+    impl = cfg.mesh_impl
+    if impl not in MESH_IMPLS:
+        raise ValueError(f"mesh_impl must be one of {MESH_IMPLS}, got {impl!r}")
+    if impl == "auto":
+        platform = jax.default_backend()
+        if platform == "cpu":
+            impl = "bruteforce"
+        elif platform == "gpu":
+            impl = "triton" if dtype == jnp.float32 else "bruteforce"
+        else:
+            raise ValueError(
+                f"mesh_impl='auto' has no triangle search for platform "
+                f"{platform!r}; choose 'bruteforce' explicitly")
+    if impl == "triton" and not scene.static.n_clusters:
         impl = "bruteforce"
-    if impl.startswith("pallas") and cfg.prim_axis is not None:
-        # the elementwise debug kernel's supercluster grouping assumes the
-        # global cluster table; refusing beats silently rendering on a
-        # different backend than the one requested
-        raise ValueError(
-            "mesh_impl='pallas' does not support primitive sharding; use "
-            "'mxu' (in-kernel schedule over the local cluster table) or "
-            "'bruteforce'")
     return impl
 
 
-def mesh_closest(scene: Scene, o, d, cfg: RenderConfig, want_n: bool = False):
-    """Closest triangle hit: (t, idx); t == BIG and idx == 0 on miss.
-
-    want_n=True returns (t, idx, n) where n is the winner's flat world
-    normal selected in-kernel (or None when the active impl can't supply it
-    — the caller then falls back to the gather).
-
-    'mxu' runs the matmul-form kernel (Möller-Trumbore factored onto the
-    systolic array over a precomputed front-to-back cluster schedule);
-    'pallas' the elementwise two-level VMEM kernel. Both are forward-only;
-    t is then recomputed differentiably for the winning triangle — a single
-    gathered Möller-Trumbore evaluation — so autodiff sees a closed-form t
-    while the O(R x T) search stays out of the graph. 'bruteforce' is the
-    pure-jnp masked sweep (differentiable as-is, used on CPU, in f64
-    conformance mode, and under primitive sharding).
-    """
-    import jax
-
-    R = o.shape[0]
+def mesh_search(scene: Scene, o, d, cfg: RenderConfig):
+    """The closest triangle hit's row per ray: (hit (R,) bool, idx (R,) i32,
+    0 on a miss). Not differentiable (an index); see mesh_closest."""
     impl = _resolve_mesh_impl(scene, cfg, o.dtype)
+    if impl == "triton":
+        from ..ops.pallas.mesh_intersect import closest_hit as kernel
 
-    if impl in _KERNEL_IMPLS:
-        if _use_tlas(scene, cfg, impl):
-            # instanced scene: the TLAS kernel reports instance-local
-            # winners; map them to world-table rows (one (R,) gather) to
-            # keep this API's contract identical across backends
-            t, enc, _, n_pay = _tlas_closest(scene, o, d, cfg, impl)
-            hit_ok = enc >= 0
-            enc_c = jnp.where(hit_ok, enc, 0)
-            idx_c = jnp.take(scene.tlas.gid.reshape(-1), enc_c)
-            n = pack3(*normalize3(*unpack3(n_pay))) if want_n else None
-            return (t, idx_c, n) if want_n else (t, idx_c)
-        # the traversal schedule is computed IN-KERNEL per tile (exact
-        # per-ray slab tests, front-to-back): no XLA-side schedule pass,
-        # no HBM schedule tables
-        spec = (impl, scene.static.n_super, scene.static.cluster_size,
-                min(512, max(128, R)), cfg.epsilon)
-        n = None
-        if want_n and impl.startswith("mxu") and not scene.static.any_smooth:
-            t, idx, n = _kernel_closest_n(
-                spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-                scene.tri_n, scene.cluster_aabb, scene.super_aabb)
-        elif want_n and impl.startswith("mxu"):
-            from ..ops.pallas.mesh_intersect import VMEM_TRI_BUDGET
+        sg = jax.lax.stop_gradient
+        _, idx = kernel(sg(o), sg(d), sg(scene.tri_p1), sg(scene.tri_e1),
+                        sg(scene.tri_e2), sg(scene.cluster_aabb),
+                        leaf=scene.static.cluster_size, eps=cfg.epsilon,
+                        interpret=cfg.interpret)
+        hit = idx >= 0
+        return hit, jnp.where(hit, idx, 0)
+    t, v = tri_candidates(scene, jax.lax.stop_gradient(o),
+                          jax.lax.stop_gradient(d), cfg.epsilon)
+    ok = v & (t >= 0.0)
+    # argmin breaks ties to the lowest row, as the kernel's ascending walk
+    idx = jnp.argmin(jnp.where(ok, t, BIG), axis=1).astype(jnp.int32)
+    return jnp.any(ok, axis=1), idx
 
-            snc = jnp.concatenate(
-                [scene.tri_sn1, scene.tri_sn2, scene.tri_sn3], axis=1)
-            if scene.static.n_tris <= VMEM_TRI_BUDGET:
-                # smooth meshes: the winner's corner normals are blended
-                # with its (u, v) IN-KERNEL from the VMEM-resident (9, T)
-                # corner slab — no XLA-side (R, 9) gather, no separate uv
-                # JVP recompute
-                t, idx, n_blend = _kernel_closest_sn(
-                    spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-                    snc, scene.cluster_aabb, scene.super_aabb)
-                n = normalize(n_blend)
-            else:
-                # oversized smooth mesh (streams in superblocks): winner
-                # (u, v) in-kernel, corner blend with ONE fused (R, 9)
-                # gather outside
-                t, idx, uv = _kernel_closest_uv(
-                    spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-                    scene.cluster_aabb, scene.super_aabb)
-                idx_c0 = jnp.where(idx >= 0, idx, 0)
-                g = snc[idx_c0]                              # (R, 9)
-                u, v = uv[:, 0:1], uv[:, 1:2]
-                n = normalize(
-                    (1.0 - u - v) * g[:, 0:3] + u * g[:, 3:6] + v * g[:, 6:9])
-        else:
-            t, idx = _kernel_closest(
-                spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-                scene.cluster_aabb, scene.super_aabb)
-        hit_ok = idx >= 0
-        idx_c = jnp.where(hit_ok, idx, 0)
-        t = jnp.where(hit_ok, t, BIG)
-        return (t, idx_c, n) if want_n else (t, idx_c)
 
-    t, v = tri_candidates(scene, o, d, cfg.epsilon)
-    tt = jnp.where(v & (t >= 0.0), t, BIG)
-    idx = jnp.argmin(tt, axis=1).astype(jnp.int32)
-    t_min = jnp.take_along_axis(tt, idx[:, None], axis=1)[:, 0]
-    return (t_min, idx, None) if want_n else (t_min, idx)
+def mesh_closest(scene: Scene, o, d, cfg: RenderConfig, with_uv: bool = False):
+    """Closest triangle hit: (t, idx) — t == BIG and idx == 0 on a miss —
+    plus the winner's barycentric (u, v) when with_uv.
+
+    One search (mesh_search: the Triton kernel or the dense jnp sweep)
+    picks the winner; t and (u, v) are then recomputed by ONE gathered
+    Möller-Trumbore evaluation at that triangle. The recompute is what
+    autodiff sees: exact derivatives w.r.t. rays and triangle vertices
+    (closed-form t, implicit-function rule), while the O(R x T) search
+    stays out of the graph on every backend."""
+    hit, idx = mesh_search(scene, o, d, cfg)
+    t, _, u, v = intersect.triangle(
+        o, d, scene.tri_p1[idx], scene.tri_e1[idx], scene.tri_e2[idx],
+        cfg.epsilon)
+    t = jnp.where(hit, t, BIG)
+    return (t, idx, u, v) if with_uv else (t, idx)
 
 
 def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
@@ -669,44 +213,18 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     tri_obj = jnp.zeros((R,), jnp.int32)
     tri_n = jnp.zeros_like(o)
     if st.n_tris:
-        impl_ch = _resolve_mesh_impl(scene, cfg, o.dtype)
-        if impl_ch in _KERNEL_IMPLS and _use_tlas(scene, cfg, impl_ch):
-            # instanced fast path: t, winner id, OBJECT ID and world normal
-            # all come out of the kernel — zero XLA-side (R,) gathers. The
-            # world-table row (hit.tri) is only materialized when the
-            # refraction census will read it.
-            t_t, enc, tri_obj, n_pay = _tlas_closest(
-                scene, o, d, cfg, impl_ch)
-            tri_n = pack3(*normalize3(*unpack3(n_pay)))
-            enc_c = jnp.where(enc >= 0, enc, 0)
-            idx_t = (jnp.take(scene.tlas.gid.reshape(-1), enc_c)
-                     if st.refr_mesh_obj_ids else enc_c)
-            is_tri = t_t < t_p
-            t_hit = jnp.where(is_tri, t_t, t_p)
-            valid = t_hit < BIG * 0.5
-            prim_obj = (scene.prim_obj[idx_p] if st.n_prims
-                        else jnp.zeros((R,), jnp.int32))
-            obj = jnp.where(is_tri, tri_obj, prim_obj)
-            return HitInfo(t=t_hit, valid=valid, obj=obj, prim=idx_p,
-                           tri=idx_t, is_tri=is_tri, tri_n=tri_n)
-        t_t, idx_t, n_k = mesh_closest(scene, o, d, cfg, want_n=True)
+        t_t, idx_t, u, v = mesh_closest(scene, o, d, cfg, with_uv=True)
         if st.single_tri_obj >= 0:
-            # single-mesh scene: skip the (R,)-row gather (~19 ms/sweep at
-            # 1080p on v5 lite) — every triangle shares one object id
+            # single-mesh scene: every triangle shares one object id, so
+            # the per-ray tri_obj gather is a constant
             tri_obj = jnp.full_like(idx_t, st.single_tri_obj)
         else:
             tri_obj = scene.tri_obj[idx_t]
-        if n_k is not None:
-            # flat normal already selected in-kernel: no (R,)-row gather
-            tri_n = n_k
-        elif st.any_smooth:
+        if st.any_smooth:
             # smooth-triangle shading: interpolate per-corner normals with the
             # barycentric u/v at the winner (the feature the reference stubs
             # out at src/intersection.rs:381-386); flat meshes carry the face
             # normal in all three corners, making this a no-op for them
-            _, _, u, v = intersect.triangle(
-                o, d, scene.tri_p1[idx_t], scene.tri_e1[idx_t],
-                scene.tri_e2[idx_t], cfg.epsilon)
             w0 = (1.0 - u - v)[:, None]
             tri_n = normalize(
                 w0 * scene.tri_sn1[idx_t]
@@ -808,7 +326,7 @@ def intersect_all(scene: Scene, o, d, cfg: RenderConfig,
     # K smallest ts: top_k of -t returns t ascending; ties resolve to the
     # lower candidate column, matching the reference's stable sort over the
     # object-insertion order (src/world.rs:51)
-    neg, idx = _jax.lax.top_k(-tt, kk)
+    neg, idx = jax.lax.top_k(-tt, kk)
     sel = lambda a: jnp.take_along_axis(a, idx, axis=1)
     zero_uv = lambda a: jnp.where((-neg) < BIG * 0.5, a, 0.0)
     return Intersections(
@@ -836,7 +354,8 @@ def normal_at(scene: Scene, hit: HitInfo, world_point, eps) -> jnp.ndarray:
         invT = scene.prim_invT[hit.prim]      # (R, 3, 3)
         params = scene.prim_params[hit.prim]
         kind = scene.prim_kind[hit.prim]
-        p_l = jnp.einsum("rij,rj->ri", inv[:, :, :3], world_point) + inv[:, :, 3]
+        p_l = jnp.einsum("rij,rj->ri", inv[:, :, :3], world_point,
+                         precision=_HIGHEST) + inv[:, :, 3]
         n_l = normals.sphere(p_l)
         n_l = jnp.where((kind == PLANE)[:, None], normals.plane(p_l), n_l)
         n_l = jnp.where((kind == CUBE)[:, None], normals.cube(p_l), n_l)
@@ -846,7 +365,8 @@ def normal_at(scene: Scene, hit: HitInfo, world_point, eps) -> jnp.ndarray:
             n_l,
         )
         n_l = jnp.where((kind == CONE)[:, None], normals.cone(p_l), n_l)
-        n_p = normalize(jnp.einsum("rij,rj->ri", invT, n_l))
+        n_p = normalize(
+            jnp.einsum("rij,rj->ri", invT, n_l, precision=_HIGHEST))
     else:
         n_p = jnp.zeros_like(world_point)
 
@@ -857,16 +377,15 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """Shadow ray toward the light (reference: src/world.rs:100-114).
 
     `hit().t < distance` is equivalent to "ANY candidate t in [0, distance)",
-    so the Pallas path uses the cheaper any-hit occlusion kernel (no min
-    bookkeeping, early loop exit once every ray in a tile is occluded).
+    so the kernel path uses the cheaper any-hit occlusion kernel (no min
+    bookkeeping, and a ray block stops walking once all its live rays are
+    occluded).
 
     live: optional (R,) bool — dead lanes get max_t = -1 so the occlusion
-    kernel's tile schedule drops them entirely (their shadow rays would
-    otherwise point from the parking position back toward the light and drag
-    whole clusters into the traversal); they report unshadowed.
+    kernel never walks boxes for them (their shadow rays would otherwise
+    point from the parking position back toward the light and drag whole
+    clusters into the traversal); they report unshadowed.
     """
-    import jax
-
     v = scene.light_pos - point
     distance = jnp.sqrt(jnp.maximum(dot(v, v), 1e-30))
     direction = v / distance[:, None]
@@ -875,47 +394,26 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
 
     st = scene.static
     impl = _resolve_mesh_impl(scene, cfg, point.dtype)
-    if impl in _KERNEL_IMPLS:
+    if impl == "triton":
         shadowed = jnp.zeros(point.shape[:1], bool)
         if st.n_prims:
-            # dead lanes flow through this sweep too: it is a dense (R, N, 4)
-            # vectorized pass, so masked lanes cost the same VPU cycles as a
-            # compacted sweep would plus zero gather/scatter — their
-            # distance == -1 guarantees they report unshadowed
+            # dead lanes flow through this sweep too: their distance == -1
+            # guarantees they report unshadowed
             t, valid = prim_candidates(scene, point, direction, cfg.epsilon)
             shadowed = jnp.any(
                 valid & (t >= 0.0) & (t < distance[:, None, None]), axis=(1, 2))
         if st.n_tris:
-            from ..ops.pallas.mesh_intersect import (
-                mesh_any_hit_mxu, mesh_any_hit_pallas, mesh_any_hit_tlas_mxu)
+            from ..ops.pallas.mesh_intersect import any_hit
 
             sg = jax.lax.stop_gradient
-            if _use_tlas(scene, cfg, impl):
-                tl = scene.tlas
-                found = mesh_any_hit_tlas_mxu(
-                    sg(point), sg(direction), sg(distance),
-                    sg(tl.p1), sg(tl.e1), sg(tl.e2), sg(tl.caabb),
-                    sg(tl.inst_rf), sg(tl.inst_aabb), sg(tl.inst_mesh),
-                    leaf=st.cluster_size, cm=st.tlas_cm,
-                    ray_tile=TLAS_RAY_TILE,
-                    eps=cfg.epsilon,
-                    interpret=impl.endswith("_interpret"),
-                )
-            else:
-                fn = (mesh_any_hit_mxu if impl.startswith("mxu")
-                      else mesh_any_hit_pallas)
-                found = fn(
-                    sg(point), sg(direction), sg(distance),
-                    sg(scene.tri_p1), sg(scene.tri_e1), sg(scene.tri_e2),
-                    sg(scene.cluster_aabb), sg(scene.super_aabb),
-                    n_super=st.n_super, leaf=st.cluster_size,
-                    ray_tile=min(512, max(128, point.shape[0])),
-                    eps=cfg.epsilon,
-                    interpret=impl.endswith("_interpret"),
-                )
+            found = any_hit(
+                sg(point), sg(direction), sg(distance),
+                sg(scene.tri_p1), sg(scene.tri_e1), sg(scene.tri_e2),
+                sg(scene.cluster_aabb), leaf=st.cluster_size,
+                eps=cfg.epsilon, interpret=cfg.interpret)
             if cfg.prim_axis is not None:
                 # each device saw only its triangle shard: occluded anywhere
-                # == OR across the 'prims' axis (one small ICI all-reduce)
+                # == OR across the 'prims' axis (one small all-reduce)
                 found = jax.lax.psum(
                     found.astype(jnp.int32), cfg.prim_axis) > 0
             shadowed = shadowed | found
@@ -929,10 +427,9 @@ def object_record(scene: Scene, obj):
     """ONE fused gather of all per-object shading data.
 
     The shade path needs ~13 per-object lookups (pattern kind/colors/affine,
-    material color + 7 scalars); a gather costs ~3 ms per million rays on
-    TPU, so concatenating the tiny (O, F) tables host-side-of-the-gather and
-    slicing the (R, F) result turns 13 gathers into 1. All slices stay
-    differentiable w.r.t. the underlying scene fields."""
+    material color + 7 scalars); concatenating the tiny (O, F) tables before
+    the gather and slicing the (R, F) result turns 13 gathers into 1. All
+    slices stay differentiable w.r.t. the underlying scene fields."""
     tbl = jnp.concatenate([
         scene.pat_kind[:, None].astype(scene.pat_a.dtype),      # 0
         scene.pat_a,                                            # 1:4
@@ -968,7 +465,7 @@ def object_record(scene: Scene, obj):
 
 
 def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
-                       n2_enter=None, live=None):
+                       n2_enter=None):
     """n1/n2 via crossing parity — the vectorized equivalent of the
     reference's containers-stack walk over the sorted intersection list
     (src/intersection.rs:29-62).
@@ -988,12 +485,6 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     compile_scene(containers="all") reproduces the reference's every-object
     walk exactly (src/intersection.rs:29-62) by widening the static
     container sets.
-
-    live: optional (R,) bool — rays whose shading never reads n1/n2 (e.g.
-    the hit material has transparency == 0, so neither the Snell child nor
-    the Schlick blend exists, src/world.rs:71-77,132-134). The kernel path
-    drops them from the census schedule; they get whatever default falls
-    out (harmless: their n1/n2 are multiplied into parked/zero lanes).
     """
     ids = scene.static.refr_prim_ids
     mesh_ids = scene.static.refr_mesh_obj_ids
@@ -1013,43 +504,17 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
         objs.append(jnp.asarray(ids, dtype=jnp.int32))  # prim id == obj id
     if mesh_ids:
         hit_gid = jnp.where(hit.is_tri, hit.tri, -2)
-        impl = _resolve_mesh_impl(scene, cfg, o.dtype)
-        if impl.startswith("mxu") and cfg.prim_axis is None:
-            # crossing-count MXU kernel over the GLOBAL clustered tables:
-            # each triangle carries its container slot, the kernel censuses
-            # (count, latest t) per slot with the hit triangle excluded —
-            # replacing the dense (R, Km, Tm) XLA Möller-Trumbore sweep that
-            # dominated transparent-mesh frames
-            import jax
-
-            from ..ops.pallas.mesh_intersect import mesh_crossing_count_mxu
-
-            sg = jax.lax.stop_gradient
-            t_census = hit.t
-            if live is not None:
-                # dead lanes: census bound -BIG -> zero clusters scheduled
-                t_census = jnp.where(live, t_census, -BIG)
-            cnt_m, last_m = mesh_crossing_count_mxu(
-                sg(o), sg(d), sg(t_census), hit_gid,
-                sg(scene.tri_p1), sg(scene.tri_e1), sg(scene.tri_e2),
-                sg(scene.cluster_aabb), scene.tri_cid,
-                n_containers=len(mesh_ids), leaf=scene.static.cluster_size,
-                ray_tile=min(512, max(128, R)), eps=cfg.epsilon,
-                interpret=impl.endswith("_interpret"))
-            cnts.append(cnt_m)
-            lasts.append(sg(last_m))
-        else:
-            t, v, _, _ = intersect.triangle(
-                o[:, None, None, :], d[:, None, None, :],
-                scene.refr_tri_p1[None], scene.refr_tri_e1[None],
-                scene.refr_tri_e2[None], cfg.epsilon)       # (R, Km, Tm)
-            # exclude the hit triangle from its own parity count: this sweep
-            # recomputes t, which can land an ulp on either side of the
-            # kernel's t_hit and flip the parity of the crossing being shaded
-            not_self = scene.refr_tri_gid[None] != hit_gid[:, None, None]
-            before = v & not_self & (t < hit.t[:, None, None])
-            cnts.append(jnp.sum(before, axis=2))
-            lasts.append(jnp.max(jnp.where(before, t, -BIG), axis=2))
+        t, v, _, _ = intersect.triangle(
+            o[:, None, None, :], d[:, None, None, :],
+            scene.refr_tri_p1[None], scene.refr_tri_e1[None],
+            scene.refr_tri_e2[None], cfg.epsilon)       # (R, Km, Tm)
+        # exclude the hit triangle from its own parity count: this sweep
+        # recomputes t, which can land an ulp on either side of t_hit and
+        # flip the parity of the crossing being shaded
+        not_self = scene.refr_tri_gid[None] != hit_gid[:, None, None]
+        before = v & not_self & (t < hit.t[:, None, None])
+        cnts.append(jnp.sum(before, axis=2))
+        lasts.append(jnp.max(jnp.where(before, t, -BIG), axis=2))
         objs.append(jnp.asarray(mesh_ids, dtype=jnp.int32))
 
     cnt = jnp.concatenate(cnts, axis=1)                 # (R, K)
@@ -1076,9 +541,8 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
 class Comps(NamedTuple):
     """prepare_computations equivalent (reference: src/intersection.rs:17-77).
 
-    INVARIANT: n1/n2 are real refractive indices only for rays that were
-    live in the census (prepare_hit called with need_refraction=True and the
-    ray in refraction_live); everywhere else they are silent 1.0/material
+    INVARIANT: n1/n2 are real refractive indices only when prepare_hit ran
+    the census (need_refraction=True); otherwise they are silent 1.0
     dummies. The integrator guarantees nothing reads them in those cases
     (the Snell child and the Schlick blend exist only when the node can
     branch AND the hit material is transparent, src/world.rs:71-77,132-134);
@@ -1098,7 +562,8 @@ class Comps(NamedTuple):
 class Comps3(NamedTuple):
     """Component (SoA) shading frame — same semantics and n1/n2 INVARIANT
     as Comps, but every 3-vector is a tuple of three (R,) arrays so the
-    whole shading stage runs lane-major on TPU (see vec.unpack3)."""
+    shading stage is plain elementwise math on (R,) vectors (see
+    vec.unpack3)."""
 
     point: tuple
     eyev: tuple
@@ -1112,8 +577,7 @@ class Comps3(NamedTuple):
 
 
 def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
-                 n2_enter=None, need_refraction: bool = True,
-                 refraction_live=None) -> Comps3:
+                 n2_enter=None, need_refraction: bool = True) -> Comps3:
     """Derive the shading frame for a wavefront of hits, in component (SoA)
     form (reference: src/intersection.rs:17-77). Misses carry finite dummy
     values; callers mask on hit.valid. Every formula mirrors the packed
@@ -1121,8 +585,7 @@ def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
 
     need_refraction=False skips the n1/n2 census entirely (bounce-tree LEAF
     nodes: both secondary children are statically black, so neither Snell
-    nor the Schlick blend ever reads n1/n2 — src/world.rs:85-87,117-119);
-    refraction_live masks it per ray (see refraction_indices)."""
+    nor the Schlick blend ever reads n1/n2 — src/world.rs:85-87,117-119)."""
     eps = cfg.epsilon
     t_safe = jnp.where(hit.valid, hit.t, 1.0)
     ox, oy, oz = unpack3(o)
@@ -1143,8 +606,7 @@ def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     k = 2.0 * (dx * nx + dy * ny + dz * nz)
     rvx, rvy, rvz = dx - nx * k, dy - ny * k, dz - nz * k
     if need_refraction:
-        n1, n2 = refraction_indices(scene, o, d, hit, cfg,
-                                    n2_enter=n2_enter, live=refraction_live)
+        n1, n2 = refraction_indices(scene, o, d, hit, cfg, n2_enter=n2_enter)
     else:
         n1 = n2 = jnp.ones(o.shape[:1], o.dtype)
     return Comps3(
@@ -1161,13 +623,11 @@ def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
 
 
 def prepare_hit(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
-                n2_enter=None, need_refraction: bool = True,
-                refraction_live=None) -> Comps:
+                n2_enter=None, need_refraction: bool = True) -> Comps:
     """Packed (R, 3) view of prepare_hit3 — the conformance-facing API
     (rtc_tpu.testing builds reference Computations from it)."""
     c = prepare_hit3(scene, o, d, hit, cfg, n2_enter=n2_enter,
-                     need_refraction=need_refraction,
-                     refraction_live=refraction_live)
+                     need_refraction=need_refraction)
     return Comps(
         point=pack3(*c.point),
         eyev=pack3(*c.eyev),
@@ -1206,43 +666,17 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     if st.n_objects == 0:
         return jnp.zeros_like(o)
 
-    impl_ch = _resolve_mesh_impl(scene, cfg, o.dtype)
-    sh_k = None
-    if (cfg.shadows and impl_ch in _KERNEL_IMPLS
-            and _use_fused_shadow(scene, cfg, impl_ch)):
-        # one fused kernel pass: closest hit + in-kernel shadow query
-        spec = (impl_ch, st.n_super, st.cluster_size,
-                min(512, max(128, o.shape[0])), cfg.epsilon)
-        if st.any_smooth:
-            snc = jnp.concatenate(
-                [scene.tri_sn1, scene.tri_sn2, scene.tri_sn3], axis=1)
-            t_t, idx_t, n_k, sh_k = _kernel_closest_shadow_sn(
-                spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-                snc, scene.cluster_aabb, scene.light_pos)
-            n_k = pack3(*normalize3(*unpack3(n_k)))
-        else:
-            t_t, idx_t, n_k, sh_k = _kernel_closest_shadow(
-                spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-                scene.tri_n, scene.cluster_aabb, scene.light_pos)
-        tri_obj = (jnp.full_like(idx_t, st.single_tri_obj)
-                   if st.single_tri_obj >= 0 else scene.tri_obj[idx_t])
-        h_valid = t_t < BIG * 0.5
-        hit = HitInfo(t=t_t, valid=h_valid, obj=tri_obj,
-                      prim=jnp.zeros_like(idx_t), tri=idx_t,
-                      is_tri=h_valid, tri_n=n_k)
-    else:
-        hit = closest_hit(scene, o, d, cfg)
+    hit = closest_hit(scene, o, d, cfg)
     valid = hit.valid
     obj = hit.obj
     rec = object_record(scene, obj)  # one fused gather of all shading data
     # n1/n2 are read only by the Snell child and the Schlick blend, both of
     # which exist only when this node can branch AND the hit material is
     # transparent (src/world.rs:71-77,132-134) — so leaf nodes skip the
-    # containers census statically and opaque-hit rays are masked out of it
+    # containers census statically
     comps = prepare_hit3(
         scene, o, d, hit, cfg, n2_enter=rec["ior"],
-        need_refraction=budget >= 4 and st.any_refractive,
-        refraction_live=valid & (rec["transparency"] > 0.0))
+        need_refraction=budget >= 4 and st.any_refractive)
     px, py, pz = comps.point
     ex, ey, ez = comps.eyev
     nx, ny, nz = comps.normalv
@@ -1262,8 +696,8 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     pat_kind = rec["pat_kind"]
     if st.any_pattern:
         point_pk = pack3(px, py, pz)
-        pat_p = jnp.einsum("rij,rj->ri", rec["pat_inv"][:, :, :3],
-                           point_pk) + rec["pat_inv"][:, :, 3]
+        pat_p = jnp.einsum("rij,rj->ri", rec["pat_inv"][:, :, :3], point_pk,
+                           precision=_HIGHEST) + rec["pat_inv"][:, :, 3]
         base_color = patterns.color_at(pat_p, pat_kind, rec["pat_a"],
                                        rec["pat_b"])
         base_color = jnp.where(
@@ -1272,12 +706,7 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
         # no patterned object anywhere: the transform + lookup compile away
         base_color = rec["color"]
 
-    if cfg.shadows and sh_k is not None:
-        # the fused kernel already derived the shadow ray (same facing /
-        # over_point / distance formulas, in-registers) and ran the
-        # occlusion loop against the VMEM-resident tables
-        shadowed = sh_k
-    elif cfg.shadows:
+    if cfg.shadows:
         # occlusion only affects the image where the surface faces the light
         # (lighting zeroes diffuse+specular when light·normal < 0 regardless
         # of shadow, src/material.rs:57-67) — drop back-facing lanes from the

@@ -21,6 +21,7 @@ from ..scene.compile import Scene
 from ..utils.config import DEFAULT_CONFIG, RenderConfig
 from . import integrator
 from .camera import Camera, camera_rays
+from .renderer import tile_rays
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -40,7 +41,7 @@ def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFI
         jnp.asarray(camera.half_height, dtype),
         jnp.asarray(camera.pixel_size, dtype), dtype)
     n_rays = o.shape[0]
-    tile = min(cfg.ray_tile, n_rays)
+    tile = tile_rays(scene, cfg, n_rays)
     n_tiles = -(-n_rays // tile)
     pad = n_tiles * tile - n_rays
     o = jnp.pad(o, ((0, pad), (0, 0)))
@@ -58,7 +59,7 @@ def render_with_checkpoints(scene: Scene, camera: Camera,
     """Render tile-by-tile, persisting progress; resumes automatically if
     `checkpoint_path` holds a partial render for the same shape."""
     n_rays = camera.hsize * camera.vsize
-    tile = min(cfg.ray_tile, n_rays)
+    tile = tile_rays(scene, cfg, n_rays)
     n_tiles = -(-n_rays // tile)
     flat = np.zeros((n_tiles * tile, 3), dtype=np.float64)
     start = 0

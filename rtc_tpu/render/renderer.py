@@ -28,10 +28,48 @@ def _gen_rays(cam_inv, half_width, half_height, pixel_size, px, py):
                                   pixel_size, cam_inv.dtype)
 
 
+# A dense (rays x triangles) jnp sweep holds about 26 B per ray-triangle
+# pair at its peak (10.19 GB for 65,536 rays x 5,888 rows, the brute-force
+# cow on the GPU, PERF.md). A tile may fill a quarter of the device's
+# memory; a device that reports no limit (the host) gets HOST_DENSE_PAIRS.
+BYTES_PER_PAIR = 26
+HOST_DENSE_PAIRS = 1 << 26
+
+
+def dense_pairs() -> int:
+    """Ray x triangle pairs one tile of a dense sweep may hold."""
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return limit // (4 * BYTES_PER_PAIR) if limit else HOST_DENSE_PAIRS
+
+
+def tile_rays(scene: Scene, cfg: RenderConfig, n_rays: int) -> int:
+    """Rays per wavefront tile: cfg.ray_tile when set. Otherwise the whole
+    wavefront (fastest on the traversal-kernel path, PERF.md), unless a
+    dense jnp sweep must fit the device: the brute-force search over every
+    triangle, or the refraction census over the refractive meshes' rows.
+    Then the largest power of two (at least 128) whose sweep stays within
+    dense_pairs()."""
+    if cfg.ray_tile:
+        return min(cfg.ray_tile, n_rays)
+    km, tm = scene.refr_tri_p1.shape[:2]
+    dense = km * tm
+    if scene.static.n_tris and integrator._resolve_mesh_impl(
+            scene, cfg, cfg.jnp_dtype()) != "triton":
+        dense += scene.static.n_tris
+    if not dense:
+        return n_rays
+    budget = dense_pairs()
+    tile = 128
+    while tile * 2 * dense <= budget:
+        tile *= 2
+    return min(n_rays, tile)
+
+
 @partial(jax.jit, static_argnames=("cfg",))
 def _shade_rays(scene: Scene, o, d, cfg: RenderConfig):
     n_rays = o.shape[0]
-    tile = min(cfg.ray_tile, n_rays)
+    tile = tile_rays(scene, cfg, n_rays)
     n_tiles = -(-n_rays // tile)
     pad = n_tiles * tile - n_rays
     # pad rays park FAR outside every AABB (outward direction) so the
@@ -42,8 +80,7 @@ def _shade_rays(scene: Scene, o, d, cfg: RenderConfig):
     def one_tile(od):
         ot, dt = od
         # emit (3, tile): the map's stacked writes then have rays on the
-        # minor (lane) dim — a (tile, 3) write runs at 3/128 lane occupancy
-        # (~13 ms/frame of dynamic-update-slice at 1080p on v5 lite)
+        # contiguous minor dim
         return integrator.color_at(scene, ot, dt, cfg).T
 
     colors = jax.lax.map(
@@ -57,7 +94,7 @@ def _unpermute(colors, inv_perm):
     return colors[inv_perm]
 
 
-BLOCK = 16  # 16x16 = 256 pixels = one kernel ray tile
+BLOCK = 16  # 16x16 = 256-pixel screen blocks
 
 
 def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
@@ -67,10 +104,10 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
     from precomputed pixel-index constants — per-ray arithmetic is
     order-independent, so every ordering yields bit-identical pixel values).
     When the canvas divides into 16x16 blocks, pixels traverse block-major —
-    each 256-ray kernel tile is one compact screen block (same footprint as a
-    Morton tile) and the un-permute is a pure reshape/transpose (no gather,
-    vs ~18 ms for a 1.8M-row gather on v5 lite). Other sizes fall back to
-    Morton order with a gathered un-permute.
+    each kernel ray block is a compact screen region (same footprint as a
+    Morton tile) and the un-permute is a pure reshape/transpose, with no
+    full-frame gather. Other sizes fall back to Morton order with a
+    gathered un-permute.
     """
     dtype = cfg.jnp_dtype()
     morton = cfg.ray_order == "morton"
@@ -131,8 +168,7 @@ _PERM_CACHE: dict = {}
 
 def _device_morton_perm(vsize: int, hsize: int):
     """Device-resident Morton permutation + Z-ordered pixel coordinates,
-    cached per canvas shape (a fresh host->device upload per frame would
-    dominate on remote-attached backends)."""
+    cached per canvas shape (no host->device upload per frame)."""
     key = (vsize, hsize)
     if key not in _PERM_CACHE:
         import numpy as np

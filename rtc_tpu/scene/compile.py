@@ -35,9 +35,6 @@ from .world import World
 # the params stays finite. No scene approaches this scale.
 Y_INF = 1e9
 
-# clusters per supercluster in the mesh-acceleration hierarchy
-SUPER_WIDTH = 8
-
 
 class SceneStatic(NamedTuple):
     """Hashable compile-time facts used to prune the traced graph."""
@@ -49,63 +46,17 @@ class SceneStatic(NamedTuple):
     any_reflective: bool
     any_refractive: bool
     any_pattern: bool
-    n_clusters: int = 0       # triangle clusters for the 2-level Pallas path
+    n_clusters: int = 0       # triangle clusters for the traversal kernel
     cluster_size: int = 0     # triangles per cluster (tris padded to C*L)
     any_smooth: bool = False  # any mesh carries per-corner (smooth) normals
-    n_super: int = 0          # superclusters (groups of SUPER_WIDTH clusters)
     # mesh/triangle objects that act as refractive containers (ior != 1 or
     # transparency > 0); their triangle slabs live in Scene.refr_tri_* for
     # the n1/n2 parity walk
     refr_mesh_obj_ids: Tuple[int, ...] = ()
     # object id shared by EVERY triangle (-1 when there are several triangle
-    # objects): lets the integrator replace the 1.8M-row tri_obj gather
-    # (~19 ms/sweep on v5 lite) with a constant for single-mesh scenes
+    # objects): lets the integrator replace the per-ray tri_obj gather with
+    # a constant for single-mesh scenes
     single_tri_obj: int = -1
-    # instanced (TLAS) mesh acceleration: built when many mesh leaves share
-    # object-space geometry and the world-baked table would overflow the
-    # kernel's VMEM budget but the UNIQUE geometry fits. n_inst == 0 means
-    # no TLAS (Scene.tlas is None). tlas_cm = clusters per unique mesh
-    # (every mesh padded to the same count), so instance-local winner ids
-    # are enc = inst * (tlas_cm * cluster_size) + local.
-    tlas_n_inst: int = 0
-    tlas_n_mesh: int = 0
-    tlas_cm: int = 0
-    # smooth instanced meshes: TlasTables.sn carries (Tu, 9) object-space
-    # corner normals and the TLAS kernel blends them in-kernel (with_sn)
-    tlas_sn: bool = False
-
-
-class TlasTables(NamedTuple):
-    """Instanced two-level acceleration tables (all meshes in OBJECT space).
-
-    The reference renders 'herds' by re-walking one shape tree per ray per
-    group (src/shape.rs:399-436); flattening that to world space replicates
-    geometry per instance. The TPU-native alternative keeps the unique
-    geometry VMEM-resident ONCE and transforms each ray tile into instance
-    space inside the kernel (t is preserved because directions are not
-    renormalized — the same invariant the reference relies on,
-    src/shape.rs:214-221)."""
-
-    p1: jnp.ndarray        # (Tu, 3) unique meshes concatenated, obj space
-    e1: jnp.ndarray        # (Tu, 3)
-    e2: jnp.ndarray        # (Tu, 3)
-    n: jnp.ndarray         # (Tu, 3) unit OBJECT-space face normals
-    caabb: jnp.ndarray     # (M * Cm, 6) object-space cluster AABBs
-    inst_ab: jnp.ndarray   # (I, 12) f32 world->object [A row-major | b]
-    # per-instance ray-FEATURE transform (I*16, 10): rayf' = rayf @ M pushes
-    # the kernel's [d, o x d, o, 1] feature rows into instance object space
-    # in ONE (rt, 10) x (10, 10) matmul. The cross-product block uses the
-    # cofactor identity (Ao) x (Ad) = cof(A) (o x d); 16-row stride so the
-    # kernel's dynamic sublane slice is 8-aligned.
-    inst_rf: jnp.ndarray
-    inst_aabb: jnp.ndarray  # (I, 6) world AABB per instance (padding: empty)
-    inst_obj: jnp.ndarray  # (I,) i32 object id per instance
-    inst_mesh: jnp.ndarray  # (I,) i32 unique-mesh index per instance
-    gid: jnp.ndarray       # (I, Cm * leaf) i32 -> world-table row (pad 0)
-    # (Tu, 9) OBJECT-space corner normals [sn1|sn2|sn3] for smooth
-    # instanced meshes ((0, 9) when static.tlas_sn is False); flat meshes
-    # in a mixed scene replicate the face normal so the blend is a no-op
-    sn: jnp.ndarray = None
 
 
 @dataclasses.dataclass
@@ -155,12 +106,10 @@ class Scene:
     pat_b: jnp.ndarray       # (O, 3)
     pat_inv: jnp.ndarray     # (O, 3, 4) pattern_inv @ object_inv
 
-    # triangle-cluster acceleration (Morton-ordered chunks; the TPU-native
-    # replacement for the reference's per-group AABB cull, src/shape.rs:399-425)
-    # C is padded to a multiple of SUPER_WIDTH with empty boxes so the kernel
-    # hierarchy needs no bounds checks
+    # triangle-cluster acceleration (k-d ordered chunks of cluster_size
+    # rows; the replacement for the reference's per-group AABB cull,
+    # src/shape.rs:399-425)
     cluster_aabb: jnp.ndarray     # (C, 6): min xyz, max xyz
-    super_aabb: jnp.ndarray       # (S, 6): union of SUPER_WIDTH clusters
 
     # refractive-mesh container slabs ((0,0,3)/(0,0) when the scene has no
     # transparent meshes): a compact copy of each refractive mesh object's
@@ -177,9 +126,6 @@ class Scene:
     # the single point light (reference: src/light.rs:5-8)
     light_pos: jnp.ndarray        # (3,)
     light_intensity: jnp.ndarray  # (3,)
-
-    # instanced (TLAS) acceleration tables; None unless static.tlas_n_inst
-    tlas: TlasTables = None
 
     static: SceneStatic = dataclasses.field(
         default=None, metadata=dict(static=True))
@@ -230,17 +176,12 @@ def _kd_order(centroid: np.ndarray, leaf: int) -> np.ndarray:
 def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
     """Spatially order the triangles (balanced k-d median split) and chunk
     into fixed-size clusters with AABBs — the flat, gather-free acceleration
-    structure the Pallas kernel culls against (replacing the reference's
-    per-ray group-AABB rebuild, src/shape.rs:399-425 + bounds.rs).
-
-    Also returns src (T_padded,) i32: the pre-clustering row each final row
-    came from (-1 for padding) — the permutation record the TLAS gid tables
-    need to translate instance-local winners into final-table rows."""
+    structure the traversal kernel culls against (replacing the reference's
+    per-ray group-AABB rebuild, src/shape.rs:399-425 + bounds.rs)."""
     t = len(p1)
     centroid = p1 + (e1 + e2) / 3.0
     order = _kd_order(centroid, leaf)
     p1, e1, e2, n, obj = p1[order], e1[order], e2[order], n[order], obj[order]
-    src = order.astype(np.int32)
     if sn is not None:
         sn = sn[:, order]
 
@@ -252,7 +193,6 @@ def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
         e2 = np.concatenate([e2, z3])
         n = np.concatenate([n, z3])
         obj = np.concatenate([obj, np.zeros((pad,), dtype=obj.dtype)])
-        src = np.concatenate([src, np.full((pad,), -1, dtype=np.int32)])
         if sn is not None:
             sn = np.concatenate([sn, np.zeros((3, pad, 3))], axis=1)
     n_clusters = len(p1) // leaf
@@ -260,215 +200,10 @@ def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
     aabb = np.zeros((n_clusters, 6))
     for c in range(n_clusters):
         s = slice(c * leaf, min((c + 1) * leaf, t))
-        if s.start >= t:
-            # all-padding cluster: empty box that no ray can hit
-            aabb[c, :3] = 1.0
-            aabb[c, 3:] = -1.0
-            continue
         verts = np.concatenate([p1[s], p1[s] + e1[s], p1[s] + e2[s]])
         aabb[c, :3] = verts.min(axis=0)
         aabb[c, 3:] = verts.max(axis=0)
-
-    # pad clusters to a multiple of SUPER_WIDTH with empty boxes, then build
-    # the supercluster level (empty boxes: lo > hi, never overlap)
-    cpad = (-n_clusters) % SUPER_WIDTH
-    if cpad:
-        empty = np.zeros((cpad, 6))
-        empty[:, :3] = 1.0
-        empty[:, 3:] = -1.0
-        aabb = np.concatenate([aabb, empty])
-        # keep T == n_clusters * leaf (degenerate rows; never visited because
-        # the padding clusters' AABBs are empty)
-        z3 = np.zeros((cpad * leaf, 3))
-        p1 = np.concatenate([p1, z3])
-        e1 = np.concatenate([e1, z3])
-        e2 = np.concatenate([e2, z3])
-        n = np.concatenate([n, z3])
-        obj = np.concatenate([obj, np.zeros((cpad * leaf,), dtype=obj.dtype)])
-        src = np.concatenate([src, np.full((cpad * leaf,), -1, dtype=np.int32)])
-        if sn is not None:
-            sn = np.concatenate([sn, np.zeros((3, cpad * leaf, 3))], axis=1)
-    n_super = len(aabb) // SUPER_WIDTH
-    sup = np.zeros((n_super, 6))
-    for si in range(n_super):
-        block = aabb[si * SUPER_WIDTH:(si + 1) * SUPER_WIDTH]
-        real = block[:, 0] <= block[:, 3]
-        if real.any():
-            sup[si, :3] = block[real, :3].min(axis=0)
-            sup[si, 3:] = block[real, 3:].max(axis=0)
-        else:
-            sup[si, :3] = 1.0
-            sup[si, 3:] = -1.0
-    return p1, e1, e2, n, obj, sn, aabb, sup, src
-
-
-def _cluster_mesh(p1, e1, e2, n, leaf: int, sn=None):
-    """Object-space clustering of ONE unique mesh for the TLAS tables: k-d
-    reorder, chunk to `leaf`, per-cluster AABBs. Returns the padded tables,
-    AABBs, and src (pre-reorder row per final row, -1 padding)."""
-    t = len(p1)
-    order = _kd_order(p1 + (e1 + e2) / 3.0, leaf)
-    p1, e1, e2, n = p1[order], e1[order], e2[order], n[order]
-    sn = None if sn is None else sn[order]
-    src = order.astype(np.int32)
-    pad = (-t) % leaf
-    if pad:
-        z3 = np.zeros((pad, 3))
-        p1 = np.concatenate([p1, z3])
-        e1 = np.concatenate([e1, z3])
-        e2 = np.concatenate([e2, z3])
-        n = np.concatenate([n, z3])
-        if sn is not None:
-            sn = np.concatenate([sn, np.zeros((pad, 9))])
-        src = np.concatenate([src, np.full((pad,), -1, np.int32)])
-    cm = len(p1) // leaf
-    aabb = np.zeros((cm, 6))
-    for c in range(cm):
-        s = slice(c * leaf, min((c + 1) * leaf, t))
-        verts = np.concatenate([p1[s], p1[s] + e1[s], p1[s] + e2[s]])
-        aabb[c, :3] = verts.min(axis=0)
-        aabb[c, 3:] = verts.max(axis=0)
-    return p1, e1, e2, n, src, aabb, sn
-
-
-def _build_tlas(tri_leaves, inv_of, leaf: int, n_tris: int, tri_src,
-                leaf_offsets, n_prims: int, any_smooth: bool):
-    """Instanced (TLAS) tables when the scene is many transformed copies of
-    shared mesh geometry. Eligible when: every triangle leaf is a mesh
-    (flat OR smooth), the world-baked table overflows the kernel VMEM
-    budget (it would have to stream superblocks), and the UNIQUE geometry
-    fits it. Smooth meshes additionally carry a (Tu, 9) object-space
-    corner-normal slab; the TLAS kernel blends it in-kernel (with_sn). In a
-    mixed scene a flat mesh replicates its face normal into all three
-    corners, making the blend a no-op. Returns
-    (TlasTables-as-numpy | None, n_inst, n_mesh, cm)."""
-    from ..ops.pallas.mesh_intersect import VMEM_TRI_BUDGET
-
-    if (len(tri_leaves) < 2 or n_tris <= VMEM_TRI_BUDGET
-            or any(s.kind != "mesh" for s in tri_leaves)):
-        return None, 0, 0, 0
-    use_sn = any(s.vn1 is not None for s in tri_leaves)
-
-    import hashlib
-
-    unique, inst_mesh = {}, []
-    for s in tri_leaves:
-        h = hashlib.blake2b(digest_size=16)
-        for a in (s.v1, s.v2, s.v3):
-            h.update(np.ascontiguousarray(a).tobytes())
-        for a in (s.vn1, s.vn2, s.vn3):
-            if a is not None:
-                h.update(np.ascontiguousarray(a).tobytes())
-        inst_mesh.append(unique.setdefault(
-            (h.digest(), len(s.v1), s.vn1 is not None),
-            (len(unique), s))[0])
-    meshes = [rep for (_, rep) in sorted(unique.values())]
-    inst_mesh = np.asarray(inst_mesh, np.int32)
-
-    def _unit(a):
-        nrm = np.linalg.norm(a, axis=-1, keepdims=True)
-        return np.divide(a, nrm, out=np.zeros_like(a), where=nrm != 0)
-
-    clustered = []
-    for rep in meshes:
-        e1o, e2o, no = triangle_edges(rep.v1, rep.v2, rep.v3)
-        sn_m = None
-        if use_sn:
-            corners = ((rep.vn1, rep.vn2, rep.vn3)
-                       if rep.vn1 is not None else (no, no, no))
-            sn_m = np.concatenate([_unit(c) for c in corners], axis=1)
-        clustered.append(_cluster_mesh(rep.v1, e1o, e2o, no, leaf, sn=sn_m))
-    cm = max(c[5].shape[0] for c in clustered)
-    cm = -(-cm // 8) * 8
-    n_mesh = len(meshes)
-    # VMEM cost per unique triangle: 40 f32 of MT features + the payload
-    # slab (3 face-normal rows flat, 9 corner rows smooth) — shrink the
-    # budget accordingly so smooth TLAS scenes stay within the same VMEM
-    budget = VMEM_TRI_BUDGET if not use_sn else (VMEM_TRI_BUDGET * 43) // 49
-    if n_mesh * cm * leaf > budget:
-        return None, 0, 0, 0
-
-    tm = cm * leaf
-    p1 = np.zeros((n_mesh * tm, 3))
-    e1 = np.zeros((n_mesh * tm, 3))
-    e2 = np.zeros((n_mesh * tm, 3))
-    nrm = np.zeros((n_mesh * tm, 3))
-    snc = np.zeros((n_mesh * tm, 9)) if use_sn else np.zeros((0, 9))
-    caabb = np.zeros((n_mesh * cm, 6))
-    caabb[:, :3] = 1.0
-    caabb[:, 3:] = -1.0  # padding clusters: empty boxes, never scheduled
-    mesh_src = np.full((n_mesh, tm), -1, np.int32)
-    for m, (mp1, me1, me2, mn, msrc, mab, msn) in enumerate(clustered):
-        k = len(mp1)
-        p1[m * tm:m * tm + k] = mp1
-        e1[m * tm:m * tm + k] = me1
-        e2[m * tm:m * tm + k] = me2
-        nrm[m * tm:m * tm + k] = mn
-        if use_sn:
-            snc[m * tm:m * tm + k] = msn
-        mesh_src[m, :k] = msrc
-        caabb[m * cm:m * cm + len(mab)] = mab
-
-    # world_of: pre-cluster concat row -> final world-table row
-    world_of = np.zeros((max(int(tri_src.max()) + 1, 1),), np.int64)
-    real = tri_src >= 0
-    world_of[tri_src[real]] = np.nonzero(real)[0]
-
-    n_inst = len(tri_leaves)
-    i_pad = -(-n_inst // 8) * 8
-    inst_ab = np.zeros((i_pad, 12))
-    inst_ab[:, 0] = inst_ab[:, 4] = inst_ab[:, 8] = 1.0  # identity padding
-    inst_rf = np.zeros((i_pad * 16, 10))
-    for i in range(i_pad):
-        inst_rf[i * 16:i * 16 + 10] = np.eye(10)         # identity padding
-    inst_aabb = np.zeros((i_pad, 6))
-    inst_aabb[:, :3] = 1.0
-    inst_aabb[:, 3:] = -1.0  # padding instances: empty boxes
-    inst_obj = np.zeros((i_pad,), np.int32)
-    inst_mesh_p = np.zeros((i_pad,), np.int32)
-    inst_mesh_p[:n_inst] = inst_mesh
-    gid = np.zeros((i_pad, tm), np.int32)
-    for i, s in enumerate(tri_leaves):
-        m = int(inst_mesh[i])
-        inv = inv_of(s)
-        A = inv[:3, :3]
-        b = inv[:3, 3]
-        inst_ab[i, :9] = A.reshape(9)
-        inst_ab[i, 9:] = b
-        # rayf' = rayf @ M: d' = A d; o' = A o + b;
-        # o' x d' = (Ao + b) x (Ad) = cof(A) (o x d) + skew(b) A d
-        cof = np.linalg.inv(A).T * np.linalg.det(A)
-        skb = np.array([[0.0, -b[2], b[1]],
-                        [b[2], 0.0, -b[0]],
-                        [-b[1], b[0], 0.0]])
-        M = np.zeros((10, 10))
-        M[0:3, 0:3] = A.T
-        M[0:3, 3:6] = (skb @ A).T
-        M[3:6, 3:6] = cof.T
-        M[6:9, 6:9] = A.T
-        M[9, 6:9] = b
-        M[9, 9] = 1.0
-        inst_rf[i * 16:i * 16 + 10] = M
-        inst_obj[i] = n_prims + i
-        # world AABB: union of the mesh's object-space cluster boxes pushed
-        # through the instance's object->world transform (8 corners each)
-        o2w = s.transform
-        boxes = clustered[m][5]
-        corners = np.stack(np.meshgrid(
-            *[[0, 1]] * 3, indexing="ij"), axis=-1).reshape(8, 3)
-        pts = (boxes[:, None, :3] * (1 - corners)[None]
-               + boxes[:, None, 3:] * corners[None]).reshape(-1, 3)
-        w = pts @ o2w[:3, :3].T + o2w[:3, 3]
-        inst_aabb[i, :3] = w.min(axis=0)
-        inst_aabb[i, 3:] = w.max(axis=0)
-        msrc = mesh_src[m]
-        rows = leaf_offsets[i] + np.maximum(msrc, 0)
-        gid[i] = np.where(msrc >= 0, world_of[rows], 0).astype(np.int32)
-
-    tables = dict(p1=p1, e1=e1, e2=e2, n=nrm, caabb=caabb, inst_ab=inst_ab,
-                  inst_rf=inst_rf, inst_aabb=inst_aabb, inst_obj=inst_obj,
-                  inst_mesh=inst_mesh_p, gid=gid, sn=snc)
-    return tables, i_pad, n_mesh, cm
+    return p1, e1, e2, n, obj, sn, aabb
 
 
 def _flatten(world: World):
@@ -538,7 +273,6 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
 
     # --- triangles ----------------------------------------------------------
     tp1, te1, te2, tn, tobj, tsn = [], [], [], [], [], []
-    leaf_offsets = []  # start row of each leaf in the pre-cluster concat
     any_smooth = any(
         l.kind == "mesh" and l.vn1 is not None for l in tri_leaves)
     for li, s in enumerate(tri_leaves):
@@ -561,7 +295,6 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
         nw = n_obj @ inv[:3, :3]  # (n @ invT.T) == n @ inv
         norm = np.linalg.norm(nw, axis=-1, keepdims=True)
         nw = np.divide(nw, norm, out=np.zeros_like(nw), where=norm != 0)
-        leaf_offsets.append(sum(len(a) for a in tp1))
         tp1.append(w1)
         te1.append(w2 - w1)
         te2.append(w3 - w1)
@@ -592,15 +325,13 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
     tri_sn = np.concatenate(tsn, axis=1) if tsn else None
 
     n_clusters = 0
-    tri_src = np.zeros((0,), dtype=np.int32)
     if len(tri_p1) and cluster_size:
         (tri_p1, tri_e1, tri_e2, tri_n, tri_obj, tri_sn,
-         cluster_aabb, super_aabb, tri_src) = _cluster_triangles(
+         cluster_aabb) = _cluster_triangles(
             tri_p1, tri_e1, tri_e2, tri_n, tri_obj, tri_sn, cluster_size)
         n_clusters = len(cluster_aabb)
     else:
         cluster_aabb = np.zeros((0, 6))
-        super_aabb = np.zeros((0, 6))
     n_tris = len(tri_p1)
     if tri_sn is None:
         tri_sn = np.zeros((3, 0, 3))
@@ -682,12 +413,6 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
         for k, oid in enumerate(refr_mesh_ids):
             tri_cid[(tri_obj == oid) & real_tri] = k
 
-    tlas_np, tlas_ni, tlas_nm, tlas_cm = (None, 0, 0, 0)
-    if n_clusters:
-        tlas_np, tlas_ni, tlas_nm, tlas_cm = _build_tlas(
-            tri_leaves, inv_of, cluster_size, n_tris, tri_src, leaf_offsets,
-            n_prims, any_smooth)
-
     static = SceneStatic(
         n_prims=n_prims,
         n_tris=n_tris,
@@ -700,12 +425,7 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
         n_clusters=n_clusters,
         cluster_size=cluster_size if n_clusters else 0,
         any_smooth=bool(any_smooth and n_tris),
-        n_super=len(super_aabb),
         single_tri_obj=(n_prims if len(tri_leaves) == 1 else -1),
-        tlas_n_inst=tlas_ni,
-        tlas_n_mesh=tlas_nm,
-        tlas_cm=tlas_cm,
-        tlas_sn=bool(tlas_np is not None and tlas_np["sn"].shape[0]),
     )
 
     f = lambda a: jnp.asarray(a, dtype=dtype)
@@ -726,7 +446,6 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
         tri_sn2=f(tri_sn[1]),
         tri_sn3=f(tri_sn[2]),
         cluster_aabb=f(cluster_aabb),
-        super_aabb=f(super_aabb),
         mat_color=f(mat_color),
         mat_ambient=f(mat_ambient),
         mat_diffuse=f(mat_diffuse),
@@ -745,13 +464,5 @@ def compile_scene(world: World, dtype=jnp.float32, cluster_size: int = 128,
         refr_tri_gid=i32(refr_tri_gid),
         light_pos=f(np.asarray(world.light.position, dtype=np.float64)),
         light_intensity=f(np.asarray(world.light.intensity, dtype=np.float64)),
-        tlas=None if tlas_np is None else TlasTables(
-            p1=f(tlas_np["p1"]), e1=f(tlas_np["e1"]), e2=f(tlas_np["e2"]),
-            n=f(tlas_np["n"]), caabb=f(tlas_np["caabb"]),
-            inst_ab=f(tlas_np["inst_ab"]), inst_rf=f(tlas_np["inst_rf"]),
-            inst_aabb=f(tlas_np["inst_aabb"]),
-            inst_obj=i32(tlas_np["inst_obj"]),
-            inst_mesh=i32(tlas_np["inst_mesh"]), gid=i32(tlas_np["gid"]),
-            sn=f(tlas_np["sn"])),
         static=static,
     )

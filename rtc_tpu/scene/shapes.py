@@ -7,7 +7,7 @@ flat in the transform sense. Like the reference, a second `set_transform`
 raises (src/shape.rs:199-201).
 
 Kinds: 'sphere' | 'plane' | 'cube' | 'cylinder' | 'cone' | 'group' |
-'triangle' | 'mesh'. 'mesh' is the TPU-native extension: a block of triangles
+'triangle' | 'mesh'. 'mesh' is the batched extension: a block of triangles
 sharing one transform/material (what the reference represents as a group of
 thousands of Triangle leaves — src/obj_file.rs:82-91).
 """

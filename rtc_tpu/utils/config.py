@@ -24,31 +24,33 @@ class RenderConfig:
       epsilon: offset for over/under points and parallel-ray guards.
       dtype: 'float32' or 'float64' (name, to stay hashable).
       ray_tile: rays per wavefront tile; the renderer maps over tiles to bound
-        the (rays x triangles) working set in HBM.
-      mesh_impl: triangle intersector: 'auto' | 'bruteforce' | 'mxu' |
-        'pallas' (+ '_interpret' variants for CPU debugging). 'auto' picks
-        the matmul-form 'mxu' kernel on accelerators.
+        the (rays x triangles) working set in device memory. None (the
+        default) lets the renderer choose from the scene, the triangle
+        search and the ray count (renderer.tile_rays).
+      mesh_impl: triangle search: 'auto' | 'bruteforce' | 'triton'.
+        'bruteforce' is the dense jnp sweep; 'triton' the cluster-traversal
+        kernel (ops/pallas/mesh_intersect.py). 'auto' picks brute force on
+        the CPU and in float64, the kernel on the GPU, and raises on any
+        other platform (integrator._resolve_mesh_impl).
+      interpret: run the 'triton' kernel in the Pallas interpreter (CPU
+        tests); never chosen implicitly.
       shadows: enable shadow rays (reference always does).
       ray_order: 'morton' renders pixels in Z-order (compact screen tiles ->
         tighter wavefront coherence for the cluster cull); 'scanline' is the
         reference's traversal. Pure permutation, identical output.
       prim_axis: mesh axis name the triangle table is sharded over (set by
         parallel.shard inside shard_map; None = replicated scene).
-      fused_shadow: allow the fused closest+shadow kernel on eligible
-        pure-mesh scenes (integrator._use_fused_shadow); False forces the
-        split closest_hit + is_shadowed sweeps (used by A/B parity checks
-        and the multichip dryrun's kernel certification).
     """
 
     max_depth: int = 5
     epsilon: float = EPSILON
     dtype: str = "float32"
-    ray_tile: int = 8192
+    ray_tile: Optional[int] = None
     mesh_impl: str = "auto"
+    interpret: bool = False
     shadows: bool = True
     ray_order: str = "morton"
     prim_axis: Optional[str] = None
-    fused_shadow: bool = True
 
     def jnp_dtype(self):
         import jax.numpy as jnp

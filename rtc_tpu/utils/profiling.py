@@ -64,8 +64,8 @@ class RenderReport:
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/rtc_tpu_trace"):
-    """XLA/TPU profiler trace around a render; view with TensorBoard or
+def trace(logdir: str):
+    """Device profiler trace around a render; view with TensorBoard or
     xprof. Usage:
 
         with profiling.trace("/tmp/trace"):
@@ -88,25 +88,16 @@ def timed(result: Dict[str, float], key: str):
     result[key] = time.perf_counter() - t0
 
 
-def _force(out):
-    """Materialize on host: block_until_ready is unreliable on
-    remote-attached backends (returns before execution completes), so fetch
-    the data — which is what any consumer (PPM write) does anyway."""
-    return jax.device_get(out)
-
-
 def time_render(render_fn, *args, warmup: bool = True, iters: int = 1,
                 **kwargs):
     """Return (result, compile_seconds, per_iter_seconds)."""
     t0 = time.perf_counter()
-    out = render_fn(*args, **kwargs)
-    _force(out)
+    out = jax.block_until_ready(render_fn(*args, **kwargs))
     compile_s = time.perf_counter() - t0
     if not warmup:
         return out, compile_s, compile_s
     t1 = time.perf_counter()
     for _ in range(iters):
-        out = render_fn(*args, **kwargs)
-        _force(out)
+        out = jax.block_until_ready(render_fn(*args, **kwargs))
     per_iter = (time.perf_counter() - t1) / max(iters, 1)
     return out, compile_s, per_iter

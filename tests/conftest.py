@@ -1,9 +1,13 @@
 """Test harness config.
 
-Tests run on the CPU backend with 8 virtual devices (so multi-chip sharding
-tests exercise a real 8-way Mesh without a pod), and with x64 enabled so the
+Tests run on the CPU backend with 8 virtual devices (so multi-device
+sharding tests exercise a real 8-way Mesh), and with x64 enabled so the
 book's 5-decimal expectations hold at the reference's f64 precision
 (SURVEY.md §4). f32 behavior is covered by explicit-dtype golden tests.
+
+RTC_TEST_PLATFORM=gpu leaves the platform to JAX instead: chip_smoke.py sets
+it to run the tests marked `gpu` on the card (tests/test_gpu.py). Whether a
+card is present is decided inside a fixture there, never at import.
 """
 
 import os
@@ -14,16 +18,14 @@ os.environ["XLA_FLAGS"] = (
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+if os.environ.get("RTC_TEST_PLATFORM", "cpu") == "cpu":
+    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 # persistent XLA compilation cache: the suite compiles ~100 distinct CPU
 # programs (one per scene/dtype/tile combination — static shapes differ per
-# scene); on this 2-core machine those compiles dominate suite wall time.
-# Cache keys include platform/flags, so sharing the repo cache dir with the
-# TPU bench entries is safe. A cold run pays full compile cost once; every
-# rerun (driver re-checks, bisects, local debugging) is several times
-# faster.
+# scene), and those compiles dominate suite wall time. Cache keys include
+# platform and flags, so CPU and GPU entries share the directory safely.
 from rtc_tpu.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()

@@ -22,7 +22,7 @@ def test_anyhit_shadow_matches_closest_hit_shadow():
         jnp.asarray(cam.pixel_size, jnp.float32), jnp.float32)
     # shadow-test the primary hit points
     cfg_b = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    cfg_p = RenderConfig(dtype="float32", mesh_impl="pallas_interpret")
+    cfg_p = RenderConfig(dtype="float32", mesh_impl="triton", interpret=True)
     hit = integrator.closest_hit(scene, o, d, cfg_b)
     t_safe = jnp.where(hit.valid, hit.t, 1.0)
     pts = o + d * t_safe[:, None]
@@ -39,6 +39,6 @@ def test_full_render_with_anyhit_matches(teapot_width=28):
     img_b = np.asarray(render(scene, cam, RenderConfig(
         dtype="float32", ray_tile=512, mesh_impl="bruteforce")))
     img_p = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="pallas_interpret")))
+        dtype="float32", ray_tile=512, mesh_impl="triton", interpret=True)))
     diff = np.max(np.abs(img_b - img_p), axis=-1)
     assert (diff > 1e-4).mean() < 0.01

@@ -1,6 +1,6 @@
 """Multi-host execution test: 2 real OS processes, localhost coordinator.
 
-Drives parallel/multihost.py end-to-end without a TPU pod: each spawned
+Drives parallel/multihost.py end-to-end without a cluster: each spawned
 process runs multi-controller JAX on 2 virtual CPU devices (4 global devices,
 2 processes), renders through render_multihost, and runs a cross-host
 gradient-psum step (SURVEY.md §2 parallelism table row 3). Process 0 asserts

@@ -1,637 +1,109 @@
-"""Pallas two-level mesh kernel vs brute-force sweep (interpret mode on CPU;
-the same kernel compiles natively on TPU)."""
+"""Triton-route traversal kernels vs the brute-force sweep (Pallas
+interpreter on the CPU; tests/test_gpu.py runs the compiled kernels on the
+card)."""
 
-import dataclasses
-
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from rtc_tpu.models.scenes import REGISTRY
+from kernel_cases import (BRUTE, KERNEL, SCENES, assert_closest_parity,
+                          case, incoherent_rays)
+from rtc_tpu.ops.pallas import mesh_intersect as M
 from rtc_tpu.render import integrator
-from rtc_tpu.render.camera import camera_rays
-from rtc_tpu.render.renderer import render
-from rtc_tpu.scene.compile import compile_scene
-from rtc_tpu.utils.config import RenderConfig
 from rtc_tpu.utils.constants import BIG
 
 
-def rays_for(cam, dtype=jnp.float32):
-    return camera_rays(
-        jnp.asarray(cam.transform_inverse, dtype),
-        cam.hsize, cam.vsize,
-        jnp.asarray(cam.half_width, dtype),
-        jnp.asarray(cam.half_height, dtype),
-        jnp.asarray(cam.pixel_size, dtype), dtype)
+def _kernel_args(scene):
+    return (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb)
 
 
-@pytest.fixture(scope="module")
-def teapot32():
-    world, cam = REGISTRY["teapot"](32)
-    scene = compile_scene(world, dtype=np.float32)
-    o, d = rays_for(cam)
-    return scene, o, d
-
-
-IMPLS = ("pallas_interpret", "mxu_interpret")
-
-
-@pytest.mark.parametrize("impl", IMPLS)
-def test_pallas_matches_bruteforce(teapot32, impl):
-    scene, o, d = teapot32
-    brute = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    pallas = RenderConfig(dtype="float32", mesh_impl=impl)
-    t_b, i_b = integrator.mesh_closest(scene, o, d, brute)
-    t_p, i_p = integrator.mesh_closest(scene, o, d, pallas)
-    t_b, t_p = np.asarray(t_b), np.asarray(t_p)
-    hit_b, hit_p = t_b < BIG / 2, t_p < BIG / 2
-    np.testing.assert_array_equal(hit_b, hit_p)
-    np.testing.assert_allclose(t_p[hit_p], t_b[hit_b], rtol=1e-5, atol=1e-6)
-    # winning triangles agree except where two tris tie at the same t
-    same = np.asarray(i_b) == np.asarray(i_p)
-    assert same[hit_b].mean() > 0.99
-
-
-@pytest.mark.parametrize("impl", IMPLS)
-def test_pallas_render_matches_bruteforce(teapot32, impl):
-    scene, o, d = teapot32
-    world, cam = REGISTRY["teapot"](32)
-    img_b = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="bruteforce")))
-    img_p = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl=impl)))
-    diff = np.max(np.abs(img_b - img_p), axis=-1)
-    assert (diff > 1e-4).mean() < 0.01
-
-
-@pytest.mark.parametrize("impl", IMPLS)
-def test_pallas_grad_flows_through_refinement(teapot32, impl):
-    import jax
-
-    scene, o, d = teapot32
-    cfg = RenderConfig(dtype="float32", mesh_impl=impl)
-    mid = o.shape[0] // 2  # center rays actually hit the teapot
-    o, d = o[mid : mid + 64], d[mid : mid + 64]
-
-    def loss(tri_p1):
-        s = dataclasses.replace(scene, tri_p1=tri_p1)
-        t, idx = integrator.mesh_closest(s, o, d, cfg)
-        return jnp.sum(jnp.where(t < BIG / 2, t, 0.0))
-
-    g = jax.grad(loss)(scene.tri_p1)
-    g = np.asarray(g)
-    assert np.all(np.isfinite(g))
-    assert np.abs(g).sum() > 0.0
-
-
-@pytest.mark.parametrize("impl", IMPLS)
-def test_kernel_grad_matches_bruteforce(teapot32, impl):
-    """The custom_jvp around the forward-only kernel must give the same
-    vertex/ray gradients as differentiating the brute-force sweep."""
-    import jax
-
-    scene, o, d = teapot32
-    mid = o.shape[0] // 2
-    o, d = o[mid : mid + 64], d[mid : mid + 64]
-
-    def loss_fn(cfg):
-        def loss(tri_p1, o, d):
-            s = dataclasses.replace(scene, tri_p1=tri_p1)
-            t, idx = integrator.mesh_closest(s, o, d, cfg)
-            return jnp.sum(jnp.where(t < BIG / 2, t, 0.0))
-        return loss
-
-    gk = jax.grad(loss_fn(RenderConfig(dtype="float32", mesh_impl=impl)),
-                  argnums=(0, 1, 2))(scene.tri_p1, o, d)
-    gb = jax.grad(loss_fn(RenderConfig(dtype="float32", mesh_impl="bruteforce")),
-                  argnums=(0, 1, 2))(scene.tri_p1, o, d)
-    for a, b in zip(gk, gb):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-3, atol=1e-5)
-
-
-def test_blocked_streaming_matches_single_call(teapot32):
-    """Meshes beyond the VMEM budget stream in cluster superblocks; results
-    must match the single-block kernel exactly."""
-    from rtc_tpu.ops.pallas.mesh_intersect import (
-        mesh_any_hit_mxu, mesh_closest_hit_mxu)
-
-    scene, o, d = teapot32
-    o = o[::7][:256]
-    d = d[::7][:256]
-    leaf = scene.static.cluster_size
-    args = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
-            scene.super_aabb)
-    kw = dict(n_super=scene.static.n_super, leaf=leaf, interpret=True)
-    t1, i1 = mesh_closest_hit_mxu(o, d, *args, **kw)
-    # budget of 2 clusters -> many superblocks
-    t2, i2 = mesh_closest_hit_mxu(o, d, *args, vmem_tri_budget=2 * leaf, **kw)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t2), rtol=1e-6)
-
-    mt = jnp.full(o.shape[:1], 50.0, jnp.float32)
-    h1 = mesh_any_hit_mxu(o, d, mt, *args, **kw)
-    h2 = mesh_any_hit_mxu(o, d, mt, *args, vmem_tri_budget=2 * leaf, **kw)
-    np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
-
-
-# --- in-kernel (per-ray exact) traversal schedule -------------------------------
-#
-# The MXU kernels compute their front-to-back cluster schedule IN-KERNEL per
-# ray tile (_slab_entries + fused selection-sort while_loop): per-ray slab
-# tests, no XLA-side schedule pass, no HBM schedule tables. Results must be
-# identical to brute force for ANY wavefront — incoherent secondary
-# (reflection/shadow-shaped) wavefronts included.
-
-
-def _incoherent_rays(scene, o, d):
-    """A reflection-shaped wavefront: origins on the mesh surface, directions
-    scattered by the surface normals (exactly what the exact schedule is
-    for)."""
-    cfg = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    t, i = integrator.mesh_closest(scene, o, d, cfg)
-    valid = np.asarray(t) < BIG / 2
-    t_safe = jnp.where(jnp.asarray(valid), t, 1.0)
-    p = o + d * t_safe[:, None]
-    n = scene.tri_n[i]
-    refl = d - 2.0 * jnp.sum(d * n, axis=1, keepdims=True) * n
-    far = jnp.asarray(1e12, o.dtype)
-    o2 = jnp.where(jnp.asarray(valid)[:, None], p + n * 1e-4, far)
-    d2 = jnp.where(jnp.asarray(valid)[:, None], refl, 0.5773502692)
-    return o2, d2
-
-
-def test_exact_schedule_matches_bruteforce_closest(teapot32):
-    scene, o, d = teapot32
-    o2, d2 = _incoherent_rays(scene, o, d)
-    brute = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    t_b, i_b = integrator.mesh_closest(scene, o2, d2, brute)
-    mxu = RenderConfig(dtype="float32", mesh_impl="mxu_interpret")
-    t_p, i_p = integrator.mesh_closest(scene, o2, d2, mxu)
-    t_b, t_p = np.asarray(t_b), np.asarray(t_p)
-    hit_b, hit_p = t_b < BIG / 2, t_p < BIG / 2
-    np.testing.assert_array_equal(hit_b, hit_p)
-    # atol EPSILON-scale: grazing re-hits at t ~ 1e-4 differ by matmul-form
-    # vs elementwise MT roundoff
-    np.testing.assert_allclose(t_p[hit_p], t_b[hit_b], rtol=1e-4, atol=1e-5)
-
-
-def test_schedule_is_tile_invariant(teapot32):
-    """The in-kernel schedule is a per-tile union of per-ray slab tests, so
-    changing the tiling changes WHICH clusters each tile visits — but the
-    winning (t, idx) per ray must be bitwise identical across tilings."""
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    scene, o, d = teapot32
-    st = scene.static
-    args = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
-            scene.super_aabb)
-    kw = dict(n_super=st.n_super, leaf=st.cluster_size, interpret=True)
-    t_a, i_a = mesh_closest_hit_mxu(o, d, *args, ray_tile=256, **kw)
-    t_b, i_b = mesh_closest_hit_mxu(o, d, *args, ray_tile=128, **kw)
-    np.testing.assert_array_equal(np.asarray(i_a), np.asarray(i_b))
-    np.testing.assert_allclose(np.asarray(t_a), np.asarray(t_b), rtol=0, atol=0)
-
-
-def test_exact_schedule_anyhit_matches_bruteforce(teapot32):
-    scene, o, d = teapot32
-    o2, d2 = _incoherent_rays(scene, o, d)
-    # compare LIVE lanes only: parked origins (1e12) are dropped by the
-    # kernel's maxt=-1 schedule but swept by brute force
-    live = jnp.asarray(np.abs(np.asarray(o2)).max(axis=1) < 1e6)
-    brute = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    mxu = RenderConfig(dtype="float32", mesh_impl="mxu_interpret")
-    s_b = np.asarray(integrator.is_shadowed(scene, o2, brute, live=live))
-    s_p = np.asarray(integrator.is_shadowed(scene, o2, mxu, live=live))
-    lv = np.asarray(live)
-    # epsilon-scale disagreements only at silhouette knife edges
-    assert (s_b != s_p)[lv].mean() < 0.02
-
-
-def test_full_render_with_secondary_exact_schedule():
-    """cow render (reflective mesh -> secondary sweeps take the exact-schedule
-    path) must match brute force end-to-end."""
-    world, cam = REGISTRY["cow"](24)
-    scene = compile_scene(world, dtype=np.float32)
-    img_b = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="bruteforce")))
-    img_p = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="mxu_interpret")))
-    assert np.abs(img_b - img_p).max() < 2e-3
-
-
-# --- in-kernel winner-normal payload -------------------------------------------
-
-
-def test_in_kernel_normal_matches_gather():
-    """Flat meshes select the winning triangle's world normal inside the MXU
-    kernel (mesh_closest want_n=True); it must equal the gather it replaces,
-    including under superblock streaming."""
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    world, cam = REGISTRY["cow"](32)
-    scene = compile_scene(world, dtype=np.float32)
-    assert not scene.static.any_smooth  # cow is flat-shaded
-    o, d = rays_for(cam)
-
-    cfg = RenderConfig(dtype="float32", mesh_impl="mxu_interpret")
-    t, idx, n_k = integrator.mesh_closest(scene, o, d, cfg, want_n=True)
-    assert n_k is not None
-    hit = np.asarray(t) < BIG / 2
-    n_g = np.asarray(scene.tri_n[idx])
-    np.testing.assert_allclose(np.asarray(n_k)[hit], n_g[hit],
-                               rtol=0, atol=0)
-    # miss rows carry zeros (never shaded: is_tri is False there)
-    assert np.all(np.asarray(n_k)[~hit] == 0.0)
-
-    # streaming path threads the normal payload through the block combine
-    st = scene.static
-    leaf = st.cluster_size
-    t2, i2, n2 = mesh_closest_hit_mxu(
-        o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
-        scene.super_aabb, n_super=st.n_super, leaf=leaf, interpret=True,
-        vmem_tri_budget=2 * leaf, tri_n=scene.tri_n)
-    keep = np.asarray(i2) >= 0
-    np.testing.assert_allclose(
-        np.asarray(n2)[keep], np.asarray(scene.tri_n[jnp.asarray(i2)])[keep],
-        rtol=0, atol=0)
-
-
-# --- crossing-count kernel (refractive-mesh n1/n2 census) ----------------------
-
-
-def _dense_census(scene, o, d, t_hit, hit_gid, eps):
-    """The dense (R, Km, Tm) XLA census the kernel replaces."""
-    from rtc_tpu.ops import intersect
-
-    t, v, _, _ = intersect.triangle(
-        o[:, None, None, :], d[:, None, None, :],
-        scene.refr_tri_p1[None], scene.refr_tri_e1[None],
-        scene.refr_tri_e2[None], eps)
-    not_self = scene.refr_tri_gid[None] != hit_gid[:, None, None]
-    before = v & not_self & (t < t_hit[:, None, None])
-    cnt = np.asarray(jnp.sum(before, axis=2))
-    last = np.asarray(jnp.max(jnp.where(before, t, -BIG), axis=2))
-    return cnt, last
-
-
-@pytest.fixture(scope="module")
-def glass_teapot32():
-    world, cam = REGISTRY["glass_teapot"](32)
-    scene = compile_scene(world, dtype=np.float32)
-    o, d = rays_for(cam)
-    return scene, o, d
-
-
-def _census_rays(scene, o, d):
-    """Primary rays + their hits (t_hit, hit_gid), plus rays re-seated INSIDE
-    the teapot (under_point along the ray) so negative-t crossings and
-    parity-from-inside are exercised."""
-    cfg = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    t, i = integrator.mesh_closest(scene, o, d, cfg)
-    hit = np.asarray(t) < BIG / 2
-    hit_gid = jnp.where(jnp.asarray(hit), i, -2)
-    t_hit = jnp.asarray(t)
-    # stage 2: origins nudged past the first hit (inside the glass)
-    t_safe = jnp.where(jnp.asarray(hit), t, 0.0)
-    o2 = o + d * (t_safe[:, None] + 1e-3)
-    return (o, d, t_hit, hit_gid), (o2, d, jnp.full_like(t_hit, BIG),
-                                    jnp.full_like(hit_gid, -2))
-
-
-def test_crossing_kernel_matches_dense_census(glass_teapot32):
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_crossing_count_mxu
-
-    scene, o, d = glass_teapot32
-    st = scene.static
-    mesh_ids = st.refr_mesh_obj_ids
-    assert mesh_ids  # the teapot is a refractive container
-    tri_cid = jnp.full(scene.tri_obj.shape, -1, jnp.int32)
-    for k, oid in enumerate(mesh_ids):
-        tri_cid = jnp.where(scene.tri_obj == oid, k, tri_cid)
-
-    for (oo, dd, t_hit, hit_gid) in _census_rays(scene, o, d):
-        cnt_k, last_k = mesh_crossing_count_mxu(
-            oo, dd, t_hit, hit_gid, scene.tri_p1, scene.tri_e1,
-            scene.tri_e2, scene.cluster_aabb, tri_cid,
-            n_containers=len(mesh_ids), leaf=st.cluster_size,
-            interpret=True)
-        cnt_d, last_d = _dense_census(scene, oo, dd, t_hit, hit_gid,
-                                      1e-5)
-        cnt_k, last_k = np.asarray(cnt_k), np.asarray(last_k)
-        # boundary-ulp disagreements (t == t_hit knife edges) only
-        same = (cnt_k == cnt_d).all(axis=1)
-        assert same.mean() > 0.995, f"census parity differs on {(~same).sum()}"
-        close = np.abs(last_k - last_d) < 1e-4
-        assert (close | ~same[:, None]).mean() > 0.995
-
-
-def test_crossing_kernel_blocked_matches_single(glass_teapot32):
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_crossing_count_mxu
-
-    scene, o, d = glass_teapot32
-    st = scene.static
-    o, d = o[::5][:256], d[::5][:256]
-    tri_cid = jnp.where(scene.tri_obj == st.refr_mesh_obj_ids[0], 0, -1)
-    cfg = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    t, i = integrator.mesh_closest(scene, o, d, cfg)
-    hit_gid = jnp.where(jnp.asarray(t) < BIG / 2, i, -2)
-    kw = dict(n_containers=1, leaf=st.cluster_size, interpret=True)
-    c1, l1 = mesh_crossing_count_mxu(
-        o, d, t, hit_gid, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-        scene.cluster_aabb, tri_cid, **kw)
-    c2, l2 = mesh_crossing_count_mxu(
-        o, d, t, hit_gid, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-        scene.cluster_aabb, tri_cid, vmem_tri_budget=2 * st.cluster_size,
-        **kw)
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(l2), rtol=1e-6)
-
-
-def test_glass_teapot_render_kernel_matches_bruteforce():
-    """End-to-end refractive-mesh render through the crossing-count kernel
-    path must match the dense-sweep brute-force render."""
-    world, cam = REGISTRY["glass_teapot"](24)
-    scene = compile_scene(world, dtype=np.float32)
-    img_b = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="bruteforce")))
-    img_p = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="mxu_interpret")))
-    diff = np.max(np.abs(img_b - img_p), axis=-1)
-    assert (diff > 2e-3).mean() < 0.02, f"bad pixels: {(diff > 2e-3).mean()}"
-
-
-# --- in-kernel winner (u, v) payload (smooth meshes) ---------------------------
-
-
-def test_in_kernel_uv_smooth_normal_matches_bruteforce():
-    """Smooth meshes select the winner's barycentric (u, v) inside the MXU
-    kernel and blend corner normals with one fused gather; the resulting
-    shading normals must match the brute-force path's gathered-MT blend."""
-    world, cam = REGISTRY["teapot_smooth"](32)
-    scene = compile_scene(world, dtype=np.float32)
-    assert scene.static.any_smooth
-    o, d = rays_for(cam)
-
-    cfg_k = RenderConfig(dtype="float32", mesh_impl="mxu_interpret")
-    cfg_b = RenderConfig(dtype="float32", mesh_impl="bruteforce")
-    t_k, i_k, n_k = integrator.mesh_closest(scene, o, d, cfg_k, want_n=True)
-    assert n_k is not None
-    hit_k = integrator.closest_hit(scene, o, d, cfg_k)
-    hit_b = integrator.closest_hit(scene, o, d, cfg_b)
-    ok = np.asarray(hit_b.valid)
-    np.testing.assert_array_equal(ok, np.asarray(hit_k.valid))
-    nk = np.asarray(hit_k.tri_n)[ok]
-    nb = np.asarray(hit_b.tri_n)[ok]
-    # identical winners -> near-identical blended normals; tie-pick winners
-    # (different triangle, same t) legitimately differ
-    same_tri = np.asarray(hit_k.tri)[ok] == np.asarray(hit_b.tri)[ok]
-    err = np.abs(nk - nb).max(axis=1)
-    assert (err[same_tri] < 1e-4).mean() > 0.999
-
-
-def test_smooth_render_kernel_matches_bruteforce():
-    world, cam = REGISTRY["teapot_smooth"](24)
-    scene = compile_scene(world, dtype=np.float32)
-    img_b = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="bruteforce")))
-    img_p = np.asarray(render(scene, cam, RenderConfig(
-        dtype="float32", ray_tile=512, mesh_impl="mxu_interpret")))
-    diff = np.max(np.abs(img_b - img_p), axis=-1)
-    assert (diff > 2e-3).mean() < 0.02
-
-
-def test_uv_blocked_streaming_matches_single():
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    world, cam = REGISTRY["teapot_smooth"](32)
-    scene = compile_scene(world, dtype=np.float32)
-    o, d = rays_for(cam)
-    o, d = o[::5][:256], d[::5][:256]
-    st = scene.static
-    args = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
-            scene.super_aabb)
-    kw = dict(n_super=st.n_super, leaf=st.cluster_size, interpret=True,
-              want_uv=True)
-    t1, i1, uv1 = mesh_closest_hit_mxu(o, d, *args, **kw)
-    t2, i2, uv2 = mesh_closest_hit_mxu(
-        o, d, *args, vmem_tri_budget=2 * st.cluster_size, **kw)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_allclose(np.asarray(uv1), np.asarray(uv2), rtol=1e-6)
-
-
-# --- large-scene superblock streaming (cow_herd, 523k triangles) ---------------
-
-
-@pytest.mark.slow
-def test_cow_herd_streaming_matches_bruteforce():
-    """The 523k-triangle herd is ~10x over the VMEM triangle budget (11
-    superblocks): the streaming closest-hit must agree with the dense sweep.
-    256-ray probe keeps the brute-force (R, 523k) reference tractable."""
-    world, cam = REGISTRY["cow_herd"](32)
-    scene = compile_scene(world, dtype=np.float32)
-    from rtc_tpu.ops.pallas.mesh_intersect import _blocked, VMEM_TRI_BUDGET
-
-    assert _blocked(scene.tri_p1, scene.static.cluster_size,
-                    VMEM_TRI_BUDGET) >= 10
-    o, d = rays_for(cam)
-    o, d = o[::4][:256], d[::4][:256]
-    t_b, i_b = integrator.mesh_closest(
-        scene, o, d, RenderConfig(dtype="float32", mesh_impl="bruteforce"))
-    t_k, i_k = integrator.mesh_closest(
-        scene, o, d, RenderConfig(dtype="float32", mesh_impl="mxu_interpret"))
-    t_b, t_k = np.asarray(t_b), np.asarray(t_k)
-    hit_b, hit_k = t_b < BIG / 2, t_k < BIG / 2
-    np.testing.assert_array_equal(hit_b, hit_k)
-    assert hit_b.any()
-    np.testing.assert_allclose(t_k[hit_k], t_b[hit_b], rtol=1e-4, atol=1e-5)
-
-
-def test_carried_t0_bound_semantics(teapot32):
-    """The streaming carry contract: with t0 provided, only hits strictly
-    before t0 are reported (idx >= 0); lanes whose best hit is at/beyond
-    their t0 report idx == -1 and t == BIG."""
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    scene, o, d = teapot32
-    o, d = o[::7][:256], d[::7][:256]
-    st = scene.static
-    args = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
-            scene.super_aabb)
-    kw = dict(n_super=st.n_super, leaf=st.cluster_size, interpret=True)
-    t_free, i_free = mesh_closest_hit_mxu(o, d, *args, **kw)
-    hit = np.asarray(i_free) >= 0
+@pytest.mark.parametrize("name", SCENES)
+def test_pallas_matches_bruteforce(name):
+    scene, _, o, d = case(name)
+    hit = assert_closest_parity(scene, o, d)
     assert hit.any() and (~hit).any()
 
-    # bound strictly BELOW each hit: nothing may be reported
-    t0_low = jnp.where(jnp.asarray(hit), t_free * 0.5, 1e-3)
-    t_b, i_b = mesh_closest_hit_mxu(o, d, *args, t0=t0_low, **kw)
-    assert (np.asarray(i_b) == -1).all()
-    assert (np.asarray(t_b) > BIG * 0.5).all()
 
-    # bound ABOVE each hit: the free-search winners reappear exactly
-    t0_high = jnp.where(jnp.asarray(hit), t_free * 1.5, jnp.asarray(BIG))
-    t_c, i_c = mesh_closest_hit_mxu(o, d, *args, t0=t0_high, **kw)
-    np.testing.assert_array_equal(np.asarray(i_c)[hit], np.asarray(i_free)[hit])
-    np.testing.assert_allclose(np.asarray(t_c)[hit], np.asarray(t_free)[hit],
-                               rtol=0, atol=0)
-    assert (np.asarray(i_c)[~hit] == -1).all()
+@pytest.mark.parametrize("name", SCENES)
+def test_exact_schedule_matches_bruteforce_closest(name):
+    """Incoherent secondary wavefronts (origins on the surface, mirrored
+    directions, parked dead lanes) agree with brute force too."""
+    scene, _, o, d = case(name)
+    o2, d2, _ = incoherent_rays(scene, o, d)
+    assert_closest_parity(scene, o2, d2)
 
 
-def test_blocked_streaming_with_normal_payload(teapot32):
-    """The carried-scan streaming path must deliver the same in-kernel flat
-    normal payload as the single-block kernel."""
-    from rtc_tpu.ops.pallas.mesh_intersect import mesh_closest_hit_mxu
-
-    scene, o, d = teapot32
-    o, d = o[::5][:256], d[::5][:256]
-    st = scene.static
-    leaf = st.cluster_size
-    args = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
-            scene.super_aabb)
-    kw = dict(n_super=st.n_super, leaf=leaf, interpret=True,
-              tri_n=scene.tri_n)
-    t1, i1, n1 = mesh_closest_hit_mxu(o, d, *args, **kw)
-    t2, i2, n2 = mesh_closest_hit_mxu(o, d, *args,
-                                      vmem_tri_budget=2 * leaf, **kw)
-    hit = np.asarray(i1) >= 0
-    np.testing.assert_allclose(np.asarray(t1)[hit], np.asarray(t2)[hit],
-                               rtol=0, atol=1e-5)
-    # normals at non-tie winners must match exactly
-    same = hit & (np.asarray(i1) == np.asarray(i2))
-    assert same.sum() > 0.9 * hit.sum()
-    np.testing.assert_allclose(np.asarray(n1)[same], np.asarray(n2)[same],
-                               rtol=0, atol=1e-6)
-    assert (np.asarray(i2)[~hit] == -1).all()
+@pytest.mark.parametrize("name", SCENES)
+def test_exact_schedule_anyhit_matches_bruteforce(name):
+    scene, _, o, d = case(name)
+    o2, _, live = incoherent_rays(scene, o, d)
+    s_b = np.asarray(integrator.is_shadowed(scene, o2, BRUTE, live=live))
+    s_k = np.asarray(integrator.is_shadowed(scene, o2, KERNEL, live=live))
+    lv = np.asarray(live)
+    # silhouette knife edges only (bench.py's on-card gate is the same)
+    assert (s_b != s_k)[lv].sum() <= max(2, lv.size // 2048)
+    assert not s_k[~lv].any()  # dead lanes report unshadowed
 
 
-def test_fused_closest_shadow_matches_split():
-    """The fused closest+shadow kernel (one launch per node) must agree
-    with the split closest_hit + is_shadowed pipeline on the cow scene:
-    identical hits, and shadow flags equal except at epsilon knife edges
-    (the in-kernel over_point/facing math may FMA-associate differently
-    from the XLA-side formulas)."""
-    import dataclasses
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from rtc_tpu.models.scenes import REGISTRY
-    from rtc_tpu.render import integrator
-    from rtc_tpu.render.camera import camera_rays
-    from rtc_tpu.scene.compile import compile_scene
-    from rtc_tpu.utils.config import RenderConfig
-
-    world, cam = REGISTRY["cow"](64)
-    scene = compile_scene(world, dtype=jnp.float32)
-    cfg = RenderConfig(dtype="float32", mesh_impl="mxu_interpret",
-                       ray_tile=2048)
-    dt = jnp.float32
-    o, d = camera_rays(
-        jnp.asarray(cam.transform_inverse, dt), cam.hsize, cam.vsize,
-        jnp.asarray(cam.half_width, dt), jnp.asarray(cam.half_height, dt),
-        jnp.asarray(cam.pixel_size, dt), dt)
-
-    assert integrator._use_fused_shadow(scene, cfg, "mxu_interpret")
-    spec = ("mxu_interpret", scene.static.n_super, scene.static.cluster_size,
-            512, cfg.epsilon)
-    t_f, idx_f, n_f, sh_f = integrator._kernel_closest_shadow(
-        spec, o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
-        scene.tri_n, scene.cluster_aabb, scene.light_pos)
-
-    hit = integrator.closest_hit(scene, o, d, cfg)
-    comps = integrator.prepare_hit(scene, o, d, hit, cfg,
-                                   need_refraction=False)
-    over = jnp.where(hit.valid[:, None], comps.over_point,
-                     jnp.asarray(1e12, dt))
-    from rtc_tpu.ops.vec import dot, normalize
-
-    facing = dot(normalize(scene.light_pos - comps.point),
-                 comps.normalv) >= 0.0
-    sh_s = integrator.is_shadowed(scene, over, cfg, live=hit.valid & facing)
-
-    t_f, t_s = np.asarray(t_f), np.asarray(hit.t)
-    hit_f, hit_s = t_f < 1e29, np.asarray(hit.valid)
-    assert (hit_f == hit_s).all()
-    np.testing.assert_allclose(t_f[hit_f], t_s[hit_f], atol=1e-4)
-    assert (np.asarray(idx_f)[hit_f] == np.asarray(hit.tri)[hit_f]).all()
-    np.testing.assert_allclose(np.asarray(n_f)[hit_f],
-                               np.asarray(hit.tri_n)[hit_f], atol=1e-4)
-    mism = int((np.asarray(sh_f) != np.asarray(sh_s)).sum())
-    assert mism <= max(2, hit_f.sum() // 1000), (
-        f"fused shadow flags differ on {mism} rays")
-
-    # end-to-end: fused color vs split color (shadows flip only at eps
-    # knife edges)
-    img_f = np.asarray(integrator.color_at(scene, o, d, cfg))
-    cfg_bf = dataclasses.replace(cfg, mesh_impl="bruteforce")
-    img_b = np.asarray(integrator.color_at(scene, o, d, cfg_bf))
-    err = np.abs(img_f - img_b).max(axis=1)
-    assert np.quantile(err, 0.999) < 2e-3 and (err > 0.05).sum() <= 3
+@pytest.mark.parametrize("block_rays", (32, 64, 256))
+def test_schedule_is_tile_invariant(block_rays):
+    """The block skips are per-program unions of per-ray box tests, so the
+    block size changes WHICH boxes a program visits — but the winning
+    (t, idx) per ray must be bitwise identical."""
+    scene, _, o, d = case("teapot")
+    kw = dict(leaf=scene.static.cluster_size, interpret=True)
+    t_a, i_a = M.closest_hit(o, d, *_kernel_args(scene), block_rays=128, **kw)
+    t_b, i_b = M.closest_hit(o, d, *_kernel_args(scene),
+                             block_rays=block_rays, **kw)
+    np.testing.assert_array_equal(np.asarray(i_a), np.asarray(i_b))
+    np.testing.assert_array_equal(np.asarray(t_a), np.asarray(t_b))
 
 
-def test_fused_closest_shadow_smooth_matches_split():
-    """Smooth variant of the fused kernel (corner blend in phase 1 +
-    normalize-then-flip in phase 2) against the split pipeline on
-    teapot_smooth."""
-    import dataclasses
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from rtc_tpu.models.scenes import REGISTRY
-    from rtc_tpu.render import integrator
-    from rtc_tpu.render.camera import camera_rays
-    from rtc_tpu.scene.compile import compile_scene
-    from rtc_tpu.utils.config import RenderConfig
-
-    world, cam = REGISTRY["teapot_smooth"](48)
-    scene = compile_scene(world, dtype=jnp.float32)
-    cfg = RenderConfig(dtype="float32", mesh_impl="mxu_interpret",
-                      ray_tile=2048)
-    dt = jnp.float32
-    o, d = camera_rays(
-        jnp.asarray(cam.transform_inverse, dt), cam.hsize, cam.vsize,
-        jnp.asarray(cam.half_width, dt), jnp.asarray(cam.half_height, dt),
-        jnp.asarray(cam.pixel_size, dt), dt)
-    assert integrator._use_fused_shadow(scene, cfg, "mxu_interpret")
-    assert scene.static.any_smooth
-
-    img_f = np.asarray(integrator.color_at(scene, o, d, cfg))
-    cfg_bf = dataclasses.replace(cfg, mesh_impl="bruteforce")
-    img_b = np.asarray(integrator.color_at(scene, o, d, cfg_bf))
-    err = np.abs(img_f - img_b).max(axis=1)
-    assert np.quantile(err, 0.999) < 2e-3 and (err > 0.05).sum() <= 3
+@pytest.mark.parametrize("n_rays", (1, 77, 300))
+def test_ragged_ray_count(n_rays):
+    """Ray counts that are not a multiple of the block: padded rays never
+    leak into the outputs, which have exactly R rows."""
+    scene, _, o, d = case("teapot")
+    sl = slice(200, 200 + n_rays)
+    kw = dict(leaf=scene.static.cluster_size, interpret=True, block_rays=64)
+    t, idx = M.closest_hit(o[sl], d[sl], *_kernel_args(scene), **kw)
+    t_full, idx_full = M.closest_hit(o, d, *_kernel_args(scene), **kw)
+    assert t.shape == (n_rays,) and idx.shape == (n_rays,)
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(idx_full)[sl])
+    hit = M.any_hit(o[sl], d[sl], jnp.full((n_rays,), 100.0),
+                    *_kernel_args(scene), **kw)
+    assert hit.shape == (n_rays,)
+    np.testing.assert_array_equal(np.asarray(hit), np.asarray(idx) >= 0)
 
 
-def test_fused_shadow_knob_parity():
-    """RenderConfig.fused_shadow=False forces the split sweeps; the two
-    paths must agree to shadow-knife-edge tolerance (the dryrun's kernel
-    certification relies on this knob)."""
-    import dataclasses
+def test_parked_and_dead_lanes():
+    """Parked lanes (far origin, outward direction — how the integrator
+    retires dead secondary rays) miss; any-hit lanes with max_t <= 0 report
+    False even when their ray would hit."""
+    scene, _, o, d = case("teapot")
+    kw = dict(leaf=scene.static.cluster_size, interpret=True)
+    park_o = jnp.full_like(o, 1e12)
+    park_d = jnp.full_like(d, 0.5773502692)
+    t, idx = M.closest_hit(park_o, park_d, *_kernel_args(scene), **kw)
+    assert (np.asarray(idx) == -1).all()
+    assert (np.asarray(t) == BIG).all()
+    _, idx_live = M.closest_hit(o, d, *_kernel_args(scene), **kw)
+    assert (np.asarray(idx_live) >= 0).any()
+    dead = M.any_hit(o, d, jnp.full(o.shape[:1], -1.0), *_kernel_args(scene),
+                     **kw)
+    assert not np.asarray(dead).any()
+    live = M.any_hit(o, d, jnp.full(o.shape[:1], 100.0), *_kernel_args(scene),
+                     **kw)
+    np.testing.assert_array_equal(np.asarray(live), np.asarray(idx_live) >= 0)
 
-    import jax.numpy as jnp
-    import numpy as np
 
-    from rtc_tpu.models.scenes import REGISTRY
-    from rtc_tpu.render import integrator
-    from rtc_tpu.render.camera import camera_rays
-    from rtc_tpu.scene.compile import compile_scene
-    from rtc_tpu.utils.config import RenderConfig
-
-    world, cam = REGISTRY["cow"](48)
-    scene = compile_scene(world, dtype=jnp.float32)
-    cfg_on = RenderConfig(dtype="float32", mesh_impl="mxu_interpret",
-                          ray_tile=2048)
-    cfg_off = dataclasses.replace(cfg_on, fused_shadow=False)
-    assert integrator._use_fused_shadow(scene, cfg_on, "mxu_interpret")
-    assert not integrator._use_fused_shadow(scene, cfg_off, "mxu_interpret")
-    dt = jnp.float32
-    o, d = camera_rays(
-        jnp.asarray(cam.transform_inverse, dt), cam.hsize, cam.vsize,
-        jnp.asarray(cam.half_width, dt), jnp.asarray(cam.half_height, dt),
-        jnp.asarray(cam.pixel_size, dt), dt)
-    img_on = np.asarray(integrator.color_at(scene, o, d, cfg_on))
-    img_off = np.asarray(integrator.color_at(scene, o, d, cfg_off))
-    err = np.abs(img_on - img_off).max(axis=1)
-    assert np.quantile(err, 0.999) < 2e-3 and (err > 0.05).sum() <= 2
+def test_empty_clusters_are_never_visited():
+    """Clusters with an empty box (lo > hi) are skipped even when their
+    rows hold real triangles: the box table, not the rows, gates a visit."""
+    scene, _, o, d = case("teapot")
+    kw = dict(leaf=scene.static.cluster_size, interpret=True)
+    empty = jnp.tile(jnp.asarray([[1.0, 1.0, 1.0, -1.0, -1.0, -1.0]]),
+                     (scene.cluster_aabb.shape[0], 1))
+    _, idx = M.closest_hit(o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
+                           empty, **kw)
+    assert (np.asarray(idx) == -1).all()

@@ -75,11 +75,12 @@ def test_full_2d_mesh_with_reflection_scene(eight_devices):
 
 
 def test_prim_sharded_kernel_matches_single_device(eight_devices):
-    """Tensor-parallel triangle sharding with the Pallas/MXU kernel running
-    per shard (local cluster tables + min-by-t / psum-OR reductions)."""
+    """Tensor-parallel triangle sharding with the traversal kernel running
+    per shard (local cluster tables + min-by-t / psum-OR reductions), on
+    the 8 virtual devices."""
     world, cam = REGISTRY["teapot"](32)
     scene = compile_scene(world, dtype=np.float32)
-    cfg = RenderConfig(ray_tile=512, mesh_impl="mxu_interpret")
+    cfg = RenderConfig(ray_tile=512, mesh_impl="triton", interpret=True)
     img_ref = np.asarray(render(scene, cam, cfg))
     mesh = make_mesh(2, 4)
     img_sh = np.asarray(
